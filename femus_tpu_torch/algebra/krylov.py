@@ -22,6 +22,7 @@ class SolveInfo(NamedTuple):
     iters: int
     residual: float       # final (preconditioned, for GMRES) residual norm
     converged: bool       # the stopping test was met within the bounds
+    target: float         # the residual norm the stopping test aims at
 
 
 def cg(A: Callable, b: torch.Tensor, x0=None, M: Optional[Callable] = None,
@@ -46,7 +47,7 @@ def cg(A: Callable, b: torch.Tensor, x0=None, M: Optional[Callable] = None,
         rz = rz_new
         k += 1
     res = float(torch.linalg.norm(r))
-    return x, SolveInfo(k, res, bool(res <= target))
+    return x, SolveInfo(k, res, bool(res <= target), target)
 
 
 def _givens(a: float, b: float):
@@ -63,6 +64,8 @@ def gmres(A: Callable, b: torch.Tensor, x0=None, M: Optional[Callable] = None,
     """Restarted GMRES(m), left-preconditioned (solves M A x = M b), CGS2
     orthogonalization (two global reductions per iteration), Givens
     rotations with early exit once |g[j]| <= max(tol*||M b||, atol).
+    ``converged`` reports that estimate; ``residual`` is the true
+    ||M (b - A x)|| at the returned x, to hold against ``target``.
 
     The (m+1)-vector basis lives on the device; the small Hessenberg
     least-squares problem is solved on the host in float64."""
@@ -122,4 +125,4 @@ def gmres(A: Callable, b: torch.Tensor, x0=None, M: Optional[Callable] = None,
         total += j
         res = abs(g[j])
     return x, SolveInfo(total, float(torch.linalg.norm(resid(x))),
-                        bool(res <= target))
+                        bool(res <= target), target)

@@ -1,10 +1,11 @@
 """Geometric multigrid V-cycle as a preconditioner.
 
 An :class:`MGHierarchy` holds per-level operators (the assembled fine
-operator and its Galerkin PtAP-coarsened levels), prolongation/restriction
-operator pairs and smoother closures.  The coarsest level is solved
-directly: its dense operator is LU-factored once per hierarchy build and
-each application is one ``lu_solve``.
+operator and its Galerkin PtAP-coarsened levels, or operators assembled on
+every level's own mesh), prolongation/restriction operator pairs and
+smoother closures.  The coarsest level is solved directly: its dense
+operator is LU-factored once per hierarchy build and each application is
+one ``lu_solve``.
 """
 from __future__ import annotations
 
@@ -81,6 +82,19 @@ def apply_dirichlet_identity(op: SparseOp, valid: torch.Tensor,
     return SparseOp(data, op.cols, op.n_cols)
 
 
+def _point_smoother(A, smoother: str, jacobi_omega: float,
+                    cheb_degree: int) -> Callable:
+    """Jacobi or Chebyshev on D^-1 A (Chebyshev: lambda_max by power
+    iteration, one per hierarchy build)."""
+    diag = A.diagonal()
+    # guard zero diagonals (e.g. pressure block)
+    safe = torch.where(diag.abs() < 1e-30, 1.0, diag)
+    if smoother == "jacobi":
+        return jacobi_smoother(A.matvec, safe, jacobi_omega, iters=1)
+    lam = power_lambda_max(A.matvec, 1.0 / safe, A.n_rows)
+    return chebyshev_smoother(A.matvec, safe, lam, degree=cheb_degree)
+
+
 def build_hierarchy(fine_op: SparseOp,
                     transfers: Sequence,   # [(P_op, R_op, ptap_schedule)] coarse->fine
                     smoother: str = "chebyshev",
@@ -136,15 +150,7 @@ def build_hierarchy(fine_op: SparseOp,
             sm = vanka_smoother(A, vanka_blocks[l], omega=vanka_omega,
                                 multiplicative=vanka_multiplicative)
         else:
-            diag = A.diagonal()
-            # guard zero diagonals (e.g. pressure block)
-            safe = torch.where(diag.abs() < 1e-30, 1.0, diag)
-            if smoother == "jacobi":
-                sm = jacobi_smoother(A.matvec, safe, jacobi_omega, iters=1)
-            else:
-                lam = power_lambda_max(A.matvec, 1.0 / safe, A.n_rows)
-                sm = chebyshev_smoother(A.matvec, safe, lam,
-                                        degree=cheb_degree)
+            sm = _point_smoother(A, smoother, jacobi_omega, cheb_degree)
         P = R = None
         if l > 0:
             P, R = transfers[l - 1][0], transfers[l - 1][1]
@@ -152,4 +158,28 @@ def build_hierarchy(fine_op: SparseOp,
     h = MGHierarchy(levels, n_pre, n_post)
     if coarse_lu:
         h.setup_coarse()          # else: coarse solve = repeated smoothing
+    return h
+
+
+def build_hierarchy_from_ops(ops: Sequence, pr_pairs: Sequence,
+                             smoother: str = "chebyshev",
+                             n_pre: int = 2, n_post: int = 2,
+                             jacobi_omega: float = 0.8,
+                             cheb_degree: int = 3) -> MGHierarchy:
+    """Hierarchy from EXPLICIT per-level operators (coarsest first) — the
+    rediscretized (non-Galerkin) mode: each level's operator is assembled
+    on its own mesh instead of PtAP-chained from the finest, so any
+    operator with ``matvec``/``diagonal`` fits (ELL, patch stencil).
+    ``pr_pairs[l]`` = (P, R) connecting level l to l+1.  The coarsest
+    level is LU-factored once here and never smoothed."""
+    if smoother not in ("jacobi", "chebyshev"):
+        raise ValueError(f"smoother {smoother!r}: rediscretized hierarchies "
+                         "take 'jacobi' or 'chebyshev'")
+    levels = [MGLevel(ops[0])]
+    for l in range(1, len(ops)):
+        P, R = pr_pairs[l - 1][0], pr_pairs[l - 1][1]
+        levels.append(MGLevel(ops[l], P, R, _point_smoother(
+            ops[l], smoother, jacobi_omega, cheb_degree)))
+    h = MGHierarchy(levels, n_pre, n_post)
+    h.setup_coarse()
     return h

@@ -12,16 +12,25 @@ Block layout: unknowns are stacked into one global dof vector with static
 per-variable offsets (KKoffset); ``interleave=True`` permutes the stacked
 index space node-major (``stack_perm``) so the assembled pattern is banded
 for the blocked-ELL matvec with no per-matvec permutes.
+
+Matrix layouts: ELL by default (the pattern is built on first use);
+``set_patch_layout`` sends the Jacobian straight into the patch-stencil
+weights instead (algebra/patchstencil.py), and then no ELL pattern is built.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable, Dict, Optional, Sequence
 
 import numpy as np
 import torch
 
 from .. import default_dtype, resolve_device
+from ..algebra.patchstencil import (K, apply_dirichlet, build_patch_slots,
+                                    build_patch_tables, dirichlet_masks,
+                                    make_block_patch_op, make_patch_op,
+                                    patch_meta, patch_routing)
 from ..algebra.sparse import EllPattern, SparseOp, pattern_from_pairs
 from ..fe.geom import GEOMS
 from ..fe.quadrature import gauss
@@ -178,13 +187,6 @@ class Assembler:
             sp_[order] = np.arange(self.n_dofs)
             self.stack_perm = sp_.astype(np.int32)
             self.edofs = self.stack_perm[self.edofs]
-        # ---- sparsity pattern + ELL slots ------------------------------
-        ne = mesh.n_elems
-        rows = np.repeat(self.edofs, self.ndt, axis=1).ravel()
-        cols = np.tile(self.edofs, (1, self.ndt)).ravel()
-        self.pattern = pattern_from_pairs(rows, cols, self.n_dofs, self.n_dofs)
-        lut = _build_slot_lut(self.pattern)
-        self.slots = lut(rows, cols).reshape(ne, self.ndt, self.ndt)
         # ---- tabulations ------------------------------------------------
         self.quad_order = quad_order
         fams = {GEO_FAMILY} | {u.family for u in unknowns}
@@ -199,6 +201,49 @@ class Assembler:
         self.dirichlet_mask = np.zeros(self.n_dofs, bool)
         self.dirichlet_values = np.zeros(self.n_dofs)
         self.volume_form: Optional[Callable] = None
+        self._tables_cache = None
+        # ---- patch-stencil matrix layout (set_patch_layout) --------------
+        self.patch_tab = None
+        self._patch_slots = None
+        self._patch_size = None
+        self._patch_nv = 1
+
+    # ---- ELL sparsity pattern + slots, built on first use ----------------
+    @functools.cached_property
+    def _ell(self):
+        rows = np.repeat(self.edofs, self.ndt, axis=1).ravel()
+        cols = np.tile(self.edofs, (1, self.ndt)).ravel()
+        pattern = pattern_from_pairs(rows, cols, self.n_dofs, self.n_dofs)
+        slots = _build_slot_lut(pattern)(rows, cols)
+        return pattern, slots.reshape(-1, self.ndt, self.ndt)
+
+    @property
+    def pattern(self) -> EllPattern:
+        return self._ell[0]
+
+    @property
+    def slots(self) -> np.ndarray:
+        """(ne, ndt, ndt) flat ELL slot of every element-Jacobian entry."""
+        return self._ell[1]
+
+    def set_patch_layout(self, plan) -> None:
+        """Assemble the Jacobian into the PATCH-STENCIL layout instead of
+        ELL (the mesh must come from mesh.patches.refine_patched; stacked,
+        not interleaved, biquadratic unknowns).  ``op_with`` then returns a
+        PatchStencilOp (one unknown) or BlockPatchStencilOp with symmetric
+        Dirichlet elimination applied in stencil form."""
+        if not all(u.family == "biquadratic" for u in self.unknowns):
+            raise ValueError("patch layout: biquadratic unknowns only")
+        if self.stack_perm is not None:
+            raise ValueError("patch layout: needs the stacked (not "
+                             "interleaved) dof layout")
+        nv = len(self.unknowns)
+        tab = build_patch_tables(plan)
+        assert tab.n * nv == self.n_dofs, (tab.n, nv, self.n_dofs)
+        self._patch_slots, self._patch_size = build_patch_slots(plan, tab,
+                                                                nv=nv)
+        self._patch_nv = nv
+        self.patch_tab = tab
         self._tables_cache = None
 
     # ------------------------------------------------------------------
@@ -241,26 +286,38 @@ class Assembler:
         def flt(a):
             return torch.as_tensor(np.asarray(a), dtype=dt, device=dev)
 
-        pat = self.pattern
         mask = self.dirichlet_mask
+        t = {
+            "elem_group": i64(self.mesh.elem_group),
+            "edofs": i64(self.edofs),
+            "coords_e": flt(self.coords_e),
+            "dir_mask": torch.as_tensor(mask, device=dev),
+            "tabs": {f: (flt(p), flt(d)) for f, (p, d) in self.tabs_np.items()},
+            "qweights": flt(self.qweights_np),
+        }
+        if self.patch_tab is not None:
+            tab = self.patch_tab
+            t["patch_slots"] = i64(self._patch_slots.reshape(-1))
+            t["patch_owner"] = torch.as_tensor(tab.owner, device=dev)
+            t["patch_routing"] = routing = patch_routing(tab, dev, dt)
+            # symmetric Dirichlet elimination in stencil form, as masks
+            t["patch_dir_bad"], t["patch_dir_ident"] = dirichlet_masks(
+                patch_meta(tab), routing[0], routing[2], t["dir_mask"],
+                t["patch_owner"], self._patch_nv)
+            return t
+        pat = self.pattern
         rows = np.arange(pat.n_rows)[:, None]
         # symmetric Dirichlet elimination: zero masked rows/cols, exactly
         # one unit entry on the diagonal of a masked row (ell_valid excludes
         # the diagonal-pointing padding slots)
         bad = mask[:, None] | mask[pat.cols]
         ident = (pat.cols == rows) & mask[:, None] & pat.valid
-        t = {
-            "elem_group": i64(self.mesh.elem_group),
-            "edofs": i64(self.edofs),
+        t.update({
             "slots": i64(self.slots.reshape(-1)),
-            "coords_e": flt(self.coords_e),
-            "dir_mask": torch.as_tensor(mask, device=dev),
             "dir_bad": torch.as_tensor(bad, device=dev),
             "dir_ident": flt(ident),
             "ell_cols": i64(pat.cols),
-            "tabs": {f: (flt(p), flt(d)) for f, (p, d) in self.tabs_np.items()},
-            "qweights": flt(self.qweights_np),
-        }
+        })
         return t
 
     def make_assemble_fn(self, with_jacobian: bool = True,
@@ -275,8 +332,9 @@ class Assembler:
 
         The volume form runs once over all elements through
         :class:`ElemOpsBatched`; the Jacobian is the forward derivative of
-        the element residuals along the ``ndt`` unit tangents."""
-        nrows, w = self.pattern.n_rows, self.pattern.width
+        the element residuals along the ``ndt`` unit tangents; it lands in
+        ELL ``data (n_rows, width)`` or, with a patch layout, in the flat
+        patch-stencil weights."""
         const_tables = None if pass_tables else self.device_tables()
 
         def assemble_t(u, tables, aux_scalars=None):
@@ -311,9 +369,15 @@ class Assembler:
             jacT = torch.func.vmap(
                 lambda tg: torch.func.jvp(all_elems, (u_locT,), (tg,))[1]
             )(tang)                                   # (ndt_j, ndt_i, ne)
+            jac = jacT.permute(2, 1, 0).reshape(-1)   # (ne, ndt_i, ndt_j)
+            if self.patch_tab is not None:
+                # every element scatters into its own patch's lattice slots
+                data = torch.zeros(self._patch_size, dtype=self.dtype,
+                                   device=self.device)
+                return R, data.index_add_(0, tables["patch_slots"], jac)
+            nrows, w = self.pattern.n_rows, self.pattern.width
             data = torch.zeros(nrows * w, dtype=self.dtype, device=self.device)
-            data.index_add_(0, tables["slots"],
-                            jacT.permute(2, 1, 0).reshape(-1))
+            data.index_add_(0, tables["slots"], jac)
             data = data.view(nrows, w)
             data = torch.where(tables["dir_bad"], tables["dir_ident"], data)
             return R, data
@@ -326,9 +390,19 @@ class Assembler:
 
         return assemble
 
-    def op_with(self, data: torch.Tensor, cols: torch.Tensor = None) -> SparseOp:
-        """Wrap assembled ELL data as a device operator (``cols``: the
-        tables' ``ell_cols``, uploaded once)."""
+    def op_with(self, data: torch.Tensor, cols: torch.Tensor = None):
+        """Wrap assembled data as a device operator: ELL data -> SparseOp
+        (``cols``: the tables' ``ell_cols``, uploaded once); patch layout ->
+        PatchStencilOp / BlockPatchStencilOp with stencil-form Dirichlet
+        elimination applied (routing and masks from the cached tables)."""
+        if self.patch_tab is not None:
+            tab, t, nv = self.patch_tab, self.device_tables_cached(), \
+                self._patch_nv
+            wt = apply_dirichlet(data.view(nv * nv * K, tab.H, tab.H, tab.Pp),
+                                 t["patch_dir_bad"], t["patch_dir_ident"])
+            if nv > 1:
+                return make_block_patch_op(tab, wt, nv, t["patch_routing"])
+            return make_patch_op(tab, wt, t["patch_routing"])
         if cols is None:
             cols = torch.as_tensor(self.pattern.cols, dtype=torch.int64,
                                    device=data.device)

@@ -1,4 +1,4 @@
-"""Ready-made weak forms (Poisson, steady Navier–Stokes).
+"""Ready-made weak forms (Poisson, steady Navier–Stokes, linear elasticity).
 
 Each form is a pure function ``form(ops, u, aux) -> {var: residual}`` over
 :class:`~femus_tpu_torch.assembly.engine.ElemOpsBatched`; Jacobians come
@@ -10,6 +10,10 @@ u <- u + delta with J delta = -R.
 from __future__ import annotations
 
 from typing import Callable, Optional
+
+import torch
+
+from . import tensors
 
 
 def poisson(var: str = "u", family: str = "biquadratic",
@@ -56,6 +60,42 @@ def navier_stokes(vel=("u", "v"), pres: str = "p",
             out[c] = r
         divV = sum(G[d][:, d] for d in range(dim))
         out[pres] = -ops.t(pres_family, divV)
+        return out
+
+    return form
+
+
+def elasticity(disp=("dx", "dy"), family: str = "biquadratic",
+               model: str = "linear", lam: float = 1.0, mu: float = 1.0,
+               force: Optional[Callable] = None):
+    """Linear elasticity in the displacement formulation:
+
+      div P + f = 0,  P = 2 mu eps(u) + lam tr(eps(u)) I,
+      eps(u) = (grad u + grad u^T) / 2.
+
+    ``force`` maps a flat (N, dim) tensor of physical points to (N, dim)
+    body-force values.  Only ``model="linear"`` is ported; the finite-strain
+    models and the mixed displacement-pressure variant are not."""
+    if model != "linear":
+        raise NotImplementedError(f"elasticity model {model!r} is not "
+                                  "ported (only 'linear')")
+    dim = len(disp)
+
+    def form(ops, u, aux):
+        lam_ = aux.get("lambda", lam)
+        mu_ = aux.get("mu", mu)
+        # G[q, d, x, e] = du_d / dx_x
+        G = torch.stack([ops.grad(family, u[c]) for c in disp], dim=1)
+        eps = 0.5 * (G + tensors.transpose(G))
+        P = (2.0 * mu_ * eps
+             + lam_ * tensors.qpm(tensors.trace(eps)) * tensors.eye_like(dim, G))
+        fq = ops.pointwise(force) if force is not None else None
+        out = {}
+        for d, c in enumerate(disp):
+            r = ops.tgrad(family, P[:, d])
+            if fq is not None:
+                r = r - ops.t(family, fq[:, d])
+            out[c] = r
         return out
 
     return form

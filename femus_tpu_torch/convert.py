@@ -1,8 +1,9 @@
 """Carry operators and state into the port from numpy arrays.
 
 The JAX package's objects hand over as plain numpy arrays (its operators'
-``data``/``cols``, its BELL plan's index arrays and slab, its solution
-fields), so both packages can compute on the same operator and state.
+``data``/``cols``, its BELL plan's index arrays and slab, its patch
+operators' weights and routing matrices, its solution fields), so both
+packages can compute on the same operator and state.
 """
 from __future__ import annotations
 
@@ -13,6 +14,7 @@ import torch
 
 from . import resolve_device
 from .algebra.bell import BellDev, BellOp
+from .algebra.patchstencil import BlockPatchStencilOp, PatchStencilOp
 from .algebra.sparse import SparseOp
 
 
@@ -59,6 +61,23 @@ def bell_op_from_numpy(plan_arrays: Mapping, slab: np.ndarray,
     blocks = torch.as_tensor(np.asarray(slab), dtype=dtype, device=device)
     return BellOp(blocks.reshape(dev.slab_rows, dev.tile, 128).contiguous(),
                   dev)
+
+
+def patch_op_from_numpy(wt: np.ndarray, G_face: np.ndarray,
+                        G_edge: np.ndarray, M_cs: np.ndarray,
+                        M_vs: np.ndarray, meta, device="cuda",
+                        dtype: Optional[torch.dtype] = None) -> PatchStencilOp:
+    """Patch-stencil operator from its weights, routing matrices and
+    ``meta`` — the fields of either package's ``PatchStencilOp`` (7-entry
+    meta) or ``BlockPatchStencilOp`` (8 entries, the last one nv).  The
+    routing matrices take the weights' dtype."""
+    device = resolve_device(device)
+    w = torch.as_tensor(np.array(wt), dtype=dtype, device=device)
+    routing = [torch.as_tensor(np.array(m), dtype=w.dtype, device=device)
+               for m in (G_face, G_edge, M_cs, M_vs)]
+    meta = tuple(int(v) for v in meta)
+    cls = BlockPatchStencilOp if len(meta) == 8 else PatchStencilOp
+    return cls(w.contiguous(), *routing, meta)
 
 
 def solution_from_numpy(ml_sol, arrays: Dict[str, np.ndarray],

@@ -8,6 +8,7 @@ from __future__ import annotations
 from typing import List
 
 from .mesh import Mesh
+from .patches import refine_patched
 from .refine import refine
 
 
@@ -36,3 +37,29 @@ class MultiLevelMesh:
         self.levels = self.levels[n:]
         self.levels[0].parent_elem = None
         self.levels[0].child_slot = None
+
+
+class PatchedMultiLevelMesh(MultiLevelMesh):
+    """Hierarchy whose refined levels carry patch-coherent node numberings
+    (mesh/patches.py): level l >= 1 is ``refine_patched(coarse, l)`` and
+    exposes its :class:`~femus_tpu_torch.mesh.patches.PatchPlan` as
+    ``mesh.patch_plan``, enabling the patch-stencil operator path
+    (SolverConfig.operator = "patch").  Element ORDER matches the plain
+    refine() chain at every level, so prolongation lineage
+    (``parent_elem``) stays valid across levels.  2-D quad coarse meshes
+    only: the 3-D (hex) patch operator is not ported yet."""
+
+    def __init__(self, coarse: Mesh, n_levels: int = 1):
+        if coarse.geom == "hex":
+            raise NotImplementedError(
+                "3-D patch hierarchies (hex coarse meshes) are not ported "
+                "yet: see ROADMAP A10, the 3-D patch operator")
+        coarse.patch_plan = None
+        self.levels = [coarse]
+        self.refine_to(n_levels)
+
+    def refine_to(self, n_levels: int) -> None:
+        while len(self.levels) < n_levels:
+            fine, plan = refine_patched(self.levels[0], len(self.levels))
+            fine.patch_plan = plan
+            self.levels.append(fine)

@@ -18,11 +18,22 @@ import torch
 from .. import default_dtype, resolve_device
 from ..algebra.bell import bell_backed, build_bell_plan, spmv_bell_cuda
 from ..algebra.krylov import cg, gmres
-from ..algebra.mg import build_hierarchy
+from ..algebra.mg import build_hierarchy, build_hierarchy_from_ops
+from ..algebra.patchstencil import spmv_patch_cuda
+from ..algebra.sparse import op_from_scipy
 from ..algebra.transfer import (block_diag_prolongation, build_ptap_schedule,
                                 mask_prolongation, op_pair_from_scipy)
 from ..assembly.engine import Assembler, Unknown
 from .solution import DIRICHLET, MultiLevelSolution
+
+# every CUDA kernel wrapper of the port, by kernel name; each counts its
+# own launches (``fn.launches``)
+KERNELS = {"bell_spmv": spmv_bell_cuda, "patch_stencil": spmv_patch_cuda}
+
+
+def launch_counts() -> Dict[str, int]:
+    """Launches of every kernel so far, by kernel name."""
+    return {name: fn.launches for name, fn in KERNELS.items()}
 
 
 @dataclasses.dataclass
@@ -45,8 +56,16 @@ class SolverConfig:
     use_mg: bool = True
     # "assembled" = ELL data + PtAP Galerkin chain; "bell" = the same
     # operators, with every Krylov/smoother matvec on a level of at least
-    # 2048 rows on the blocked-ELL slab (algebra/bell.py)
+    # 2048 rows on the blocked-ELL slab (algebra/bell.py); "patch" = every
+    # refined level of a PatchedMultiLevelMesh assembles straight into a
+    # patch-lattice stencil (algebra/patchstencil.py, kernel B2), the coarse
+    # level stays ELL (needs coarse_op="rediscretize")
     operator: str = "assembled"
+    # coarse V-cycle operators: "galerkin" = PtAP chain from the fine
+    # Jacobian; "rediscretize" = each coarse level re-assembled on its own
+    # mesh at the restricted state (no PtAP schedule is built; ported for
+    # operator="patch" only)
+    coarse_op: str = "galerkin"
     # dof ordering of the BELL slabs: "identity" trusts the mesh numbering
     # (a plan whose slab exceeds 24x the ELL bytes is rebuilt with RCM),
     # "rcm" reorders at plan build
@@ -65,13 +84,15 @@ class SolverConfig:
 
 class StepOut(NamedTuple):
     """One solve step: the new state, the correction, the linear solve's
-    final residual, iterations and convergence, and ||R(u)|| at the input."""
+    final residual, iterations and convergence, ||R(u)|| at the input, and
+    the residual norm the linear solve's stopping test aimed at."""
     u: torch.Tensor
     delta: torch.Tensor
     lin_res: float
     lin_iters: int
     res_norm: float
     converged: bool
+    lin_target: float
 
 
 class System:
@@ -112,9 +133,27 @@ class System:
         ``device`` (solve precision ``dtype``: float64 on the host, float32
         on the card by default)."""
         cfg = self.config
-        if cfg.operator not in ("assembled", "bell"):
+        if cfg.operator not in ("assembled", "bell", "patch"):
             raise NotImplementedError(f"operator {cfg.operator!r} is not "
                                       "ported")
+        if cfg.coarse_op not in ("galerkin", "rediscretize"):
+            raise ValueError(f"coarse_op {cfg.coarse_op!r}")
+        rediscretize = cfg.coarse_op == "rediscretize"
+        if cfg.operator == "patch":
+            # PtAP cannot consume the patch layout, so coarse V-cycle
+            # operators are re-assembled per level
+            if cfg.use_mg and not rediscretize:
+                raise ValueError("operator='patch' needs "
+                                 "coarse_op='rediscretize'")
+            if cfg.smoother not in ("jacobi", "chebyshev"):
+                raise ValueError("operator='patch': jacobi/chebyshev "
+                                 "smoothers only")
+        elif rediscretize:
+            raise NotImplementedError("coarse_op='rediscretize' is ported "
+                                      "for operator='patch' only")
+        if cfg.interleave_dofs and cfg.operator == "patch":
+            raise ValueError("interleave_dofs needs assembled/bell "
+                             "operators")
         self.device = resolve_device(device)
         self.dtype = dtype or default_dtype(self.device)
         ml_sol = self.ml_sol
@@ -128,6 +167,9 @@ class System:
                           dtype=self.dtype, interleave=cfg.interleave_dofs,
                           device=self.device)
             a.set_volume_form(self.volume_form)
+            if (cfg.operator == "patch"
+                    and getattr(mesh, "patch_plan", None) is not None):
+                a.set_patch_layout(mesh.patch_plan)
             mask = np.zeros(a.n_dofs, bool)
             vals = np.zeros(a.n_dofs)
             for u in self.unknowns:
@@ -141,15 +183,21 @@ class System:
             a.set_dirichlet(mask, vals)
             self.assemblers.append(a)
             self.masks.append(a.dirichlet_mask)
-        # transfers, chained top-down so each schedule consumes the actual
-        # ELL pattern of the level above
+        # transfers, chained top-down so each Galerkin schedule consumes
+        # the actual ELL pattern of the level above; rediscretized levels
+        # need P and R only, plus the state restriction of each level
         n_levels = len(self.ml_mesh.levels)
         self.transfers = [None] * (n_levels - 1)
-        pat_above = self.assemblers[-1].pattern
+        self._rsol = [None] * (n_levels - 1)
+        pat_above = None if rediscretize else self.assemblers[-1].pattern
         self._transfer_cache: Dict[int, list] = {}
         for l in range(n_levels - 2, -1, -1):
-            self.transfers[l] = self._build_transfer(l, pat_above)
-            pat_above = self.transfers[l][2].coarse_pattern
+            P = self._prolongation(l)
+            self.transfers[l] = self._build_transfer(l, P, pat_above)
+            if rediscretize:
+                self._rsol[l] = self._state_restriction(P)
+            else:
+                pat_above = self.transfers[l][2].coarse_pattern
         self._step_fns: Dict[int, Callable] = {}
         self._bell_plans: Dict[object, object] = {}
         self._initialized = True
@@ -242,20 +290,35 @@ class System:
         out.sort_indices()
         return out
 
-    def _build_transfer(self, l: int, pat_above):
-        """(P_op, R_op, coarse schedule) for level l -> l+1 against the
-        fine-side pattern ``pat_above``."""
+    def _prolongation(self, l: int):
+        """Unmasked scipy prolongation level l -> l+1, physical frame."""
         P = block_diag_prolongation(self.ml_mesh.levels[l],
                                     self.ml_mesh.levels[l + 1], self.unknowns)
-        P = self._permute_transfer(P, self.assemblers[l + 1].stack_perm,
-                                   self.assemblers[l].stack_perm)
+        return self._permute_transfer(P, self.assemblers[l + 1].stack_perm,
+                                      self.assemblers[l].stack_perm)
+
+    def _build_transfer(self, l: int, P, pat_above):
+        """(P_op, R_op, coarse schedule) for level l -> l+1 from the
+        unmasked prolongation ``P``; the Galerkin schedule runs against the
+        fine-side pattern ``pat_above`` (None: no schedule)."""
         # essential-dof masking in the PHYSICAL frame
         Pm = mask_prolongation(P, self.masks[l + 1], self.masks[l])
         Pop, Rop = op_pair_from_scipy(Pm, dtype=self.dtype,
                                       device=self.device)
-        sched = build_ptap_schedule(pat_above, Pm, dtype=self.dtype,
-                                    device=self.device)
+        sched = None if pat_above is None else build_ptap_schedule(
+            pat_above, Pm, dtype=self.dtype, device=self.device)
         return (Pop, Rop, sched)
+
+    def _state_restriction(self, P):
+        """(P^T, winv): the averaged state restriction
+        u_c = (P^T u_f) * winv with winv = 1 / (P^T 1) (0 where P^T 1 = 0),
+        of the unmasked prolongation."""
+        Rsol, _ = op_from_scipy(P.T.tocsr(), self.device, self.dtype)
+        w = np.asarray(P.sum(axis=0)).ravel()
+        winv = np.where(np.abs(w) > 1e-14,
+                        1.0 / np.maximum(np.abs(w), 1e-14), 0.0)
+        return Rsol, torch.as_tensor(winv, dtype=self.dtype,
+                                     device=self.device)
 
     def _transfers_for(self, level: int):
         """PtAP-chained transfers for a hierarchy whose finest level is
@@ -264,13 +327,15 @@ class System:
         if level < 0:
             level += n_levels
         if level not in self._transfer_cache:
-            if level == n_levels - 1:
-                tr = self.transfers
+            if (level == n_levels - 1
+                    or self.config.coarse_op == "rediscretize"):
+                tr = self.transfers[:level]
             else:
                 tr = [None] * level
                 pat_above = self.assemblers[level].pattern
                 for l in range(level - 1, -1, -1):
-                    tr[l] = self._build_transfer(l, pat_above)
+                    tr[l] = self._build_transfer(l, self._prolongation(l),
+                                                 pat_above)
                     pat_above = tr[l][2].coarse_pattern
             self._transfer_cache[level] = tr
         return self._transfer_cache[level]
@@ -292,15 +357,29 @@ class System:
                      if (cfg.use_mg and level > 0) else [])
         dmasks = [torch.as_tensor(m, device=self.device)
                   for m in self.masks[:level]]
-        # a coarsest level within coarse_dense_max_dofs is LU-solved in the
-        # V-cycle: it is never smoothed nor multiplied, so it gets no Vanka
-        # blocks and no BELL slab
+        rediscretize = cfg.coarse_op == "rediscretize" and bool(transfers)
+        # a coarsest level within coarse_dense_max_dofs (a rediscretized
+        # one always) is LU-solved in the V-cycle: it is never smoothed nor
+        # multiplied, so it gets no Vanka blocks and no BELL slab
+        if rediscretize:
+            n_coarse = self.assemblers[0].n_dofs
+        elif transfers:
+            n_coarse = transfers[0][2].coarse_pattern.n_rows
         coarse_lu = bool(transfers) and (
-            transfers[0][2].coarse_pattern.n_rows <= cfg.coarse_dense_max_dofs)
+            rediscretize or n_coarse <= cfg.coarse_dense_max_dofs)
         if coarse_lu:
-            self._route_note(n_rows=transfers[0][2].coarse_pattern.n_rows,
-                             path="lu", reason="coarsest V-cycle level: "
-                             "dense LU solve")
+            self._route_note(n_rows=n_coarse, path="lu",
+                             reason="coarsest V-cycle level: dense LU solve")
+        if cfg.operator == "patch":
+            for l in range(1 if transfers else level, level + 1):
+                al = self.assemblers[l]
+                if al.patch_tab is not None:
+                    self._route_note(n_rows=al.n_dofs, path="patch",
+                                     kernel="patch_stencil")
+                else:
+                    self._route_note(n_rows=al.n_dofs, path="ell")
+        coarse_assemble = [self.assemblers[l].make_assemble_fn(
+            pass_tables=True) for l in range(level)] if rediscretize else None
 
         vblocks = None
         if cfg.smoother == "vanka":
@@ -335,15 +414,33 @@ class System:
             u = u.to(device=self.device, dtype=self.dtype)
             R, data = assemble(u, tables, aux_scalars)
             res_norm = float(torch.linalg.norm(R))
-            A = a.op_with(data, tables["ell_cols"])
+            A = a.op_with(data, tables.get("ell_cols"))
             if bell_fine is not None:
                 A = bell_backed(bell_fine, A)
             if coarse_direct:
                 Ad = A.to_dense()
                 delta = torch.linalg.solve(Ad, -R)
                 res = float(torch.linalg.norm(R + A @ delta))
-                return StepOut(u + delta, delta, res, 1, res_norm, True)
-            if transfers:
+                return StepOut(u + delta, delta, res, 1, res_norm, True,
+                               max(cfg.rtol * res_norm, cfg.atol))
+            if rediscretize:
+                # each coarse level assembled on its own mesh at the
+                # averaged-restricted state
+                ops = [None] * level + [A]
+                u_l = u
+                for l in range(level - 1, -1, -1):
+                    Rsol, winv = self._rsol[l]
+                    u_l = (Rsol @ u_l) * winv
+                    a_c = self.assemblers[l]
+                    t_c = a_c.device_tables_cached()
+                    _, data_l = coarse_assemble[l](u_l, t_c, aux_scalars)
+                    ops[l] = a_c.op_with(data_l, t_c.get("ell_cols"))
+                h = build_hierarchy_from_ops(
+                    ops, [(t[0], t[1]) for t in transfers],
+                    smoother=cfg.smoother, n_pre=cfg.n_pre,
+                    n_post=cfg.n_post, cheb_degree=cfg.cheb_degree)
+                M = h.as_preconditioner()
+            elif transfers:
                 h = build_hierarchy(A, transfers, smoother=cfg.smoother,
                                     n_pre=cfg.n_pre, n_post=cfg.n_post,
                                     cheb_degree=cfg.cheb_degree,
@@ -371,7 +468,7 @@ class System:
                                     atol=cfg.atol, restart=cfg.restart,
                                     max_restarts=cfg.max_outer)
             return StepOut(u + delta, delta, info.residual, info.iters,
-                           res_norm, info.converged)
+                           res_norm, info.converged, info.target)
 
         self._step_fns[level] = step
         return step
@@ -401,13 +498,14 @@ class System:
     def _run_step(self, l: int) -> StepOut:
         u = torch.as_tensor(self.gather(l), dtype=self.dtype,
                             device=self.device)
-        k0 = spmv_bell_cuda.launches
+        k0 = launch_counts()
         t0 = _time.perf_counter()
         out = self.step_fn(l)(u, None, self.aux_scalars)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.last_step_seconds = _time.perf_counter() - t0
-        self.last_step_launches = spmv_bell_cuda.launches - k0
+        self.last_step_launches = {k: n - k0[k]
+                                   for k, n in launch_counts().items()}
         self.timing["solve"] += self.last_step_seconds
         return out
 
@@ -440,7 +538,10 @@ class LinearImplicitSystem(System):
             out = self._run_step(l)
             self.scatter(out.u.cpu().numpy(), l)
             info = {"level": l, "residual": out.lin_res,
-                    "iters": out.lin_iters, "converged": out.converged}
+                    "target": out.lin_target,
+                    "iters": out.lin_iters, "converged": out.converged,
+                    "seconds": self.last_step_seconds,
+                    "kernel_launches": self.last_step_launches}
             if l < levels[-1]:
                 self._refine_to(l)
         if self.config.verbose:
@@ -479,11 +580,12 @@ class NonLinearImplicitSystem(LinearImplicitSystem):
                 self.scatter(u_new, l)
                 history.append({"level": l, "newton_it": it, "eps": norms,
                                 "lin_res": out.lin_res,
+                                "lin_target": out.lin_target,
                                 "lin_iters": out.lin_iters,
                                 "converged": out.converged,
                                 "res_norm": out.res_norm,
                                 "seconds": self.last_step_seconds,
-                                "bell_launches": self.last_step_launches})
+                                "kernel_launches": self.last_step_launches})
                 it += 1
                 if worst < cfg.nonlinear_tol:
                     break

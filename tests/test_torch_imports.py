@@ -99,11 +99,14 @@ def test_entry_points_raise_without_cuda(no_cuda):
         sys_.step_fn(device="cuda")
 
 
-def test_cuda_matvec_never_falls_back_to_the_host():
+def test_cuda_matvec_never_falls_back_to_the_host(monkeypatch):
     """A CUDA tensor goes to the kernel or raises: here (no card, or a
     mismatched plan) it raises rather than running the plain version."""
     from femus_tpu_torch.algebra import bell
+    from femus_tpu_torch.algebra import patchstencil as ps
     from femus_tpu_torch.algebra.sparse import pattern_from_pairs
+    from femus_tpu_torch.mesh.generation import unit_box
+    from femus_tpu_torch.mesh.patches import refine_patched
 
     pat = pattern_from_pairs(np.arange(64), np.arange(64), 64, 64)
     op = bell.relayout_ell(bell.build_bell_plan(pat),
@@ -111,6 +114,24 @@ def test_cuda_matvec_never_falls_back_to_the_host():
                            device="cpu")
     with pytest.raises((ValueError, RuntimeError, AssertionError)):
         bell.spmv_bell_cuda(op, torch.ones(64, dtype=torch.float64))
+
+    _, plan = refine_patched(unit_box((2, 2)), 1)
+    tab = ps.build_patch_tables(plan)
+    pop = ps.make_patch_op(tab, torch.ones(ps.K, tab.H, tab.H, tab.Pp,
+                                           dtype=torch.float64))
+    ins = pop._inputs(torch.ones(tab.n, dtype=torch.float64))
+    with pytest.raises((ValueError, RuntimeError)):
+        ps.spmv_patch_cuda(pop.wt, *ins)
+    # a CUDA-routed patch matvec whose kernel cannot launch raises instead
+    # of returning the plain result
+    plain = []
+    monkeypatch.setattr(ps, "_patch_chunk_plain",
+                        lambda *a: plain.append(1))
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda t: True))
+    n0 = ps.spmv_patch_cuda.launches
+    with pytest.raises(RuntimeError, match="nvcc|CUDA"):
+        ps._patch_chunk(*(t.to("meta") for t in (pop.wt,) + ins))
+    assert not plain and ps.spmv_patch_cuda.launches == n0
 
 
 def test_chip_smoke_fails_without_a_card():
