@@ -1,8 +1,8 @@
 """Chip smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
     python3 chip_smoke.py            # the slice configurations
-    python3 chip_smoke.py --profile  # plus a profiled Newton step and a
-                                     # profiled patch solve step
+    python3 chip_smoke.py --profile  # plus a profiled Newton step, patch
+                                     # solve step and lattice CG solve
 
 Phases, one JSON line each; any failure exits non-zero.  Slice 1, the
 steady Navier-Stokes Newton step on the BELL operator:
@@ -54,6 +54,38 @@ V-cycle, Chebyshev smoothing, GMRES(30) in float32 at rtol 1e-6):
 9. patch_reference — both problems on unit_box((4,4)), 3 levels, on the
                      card (float32) and the host (float64) must agree.
 
+Slice 3, the lattice operator path on poisson-lattice-512 (Q2 Poisson on
+unit_box((512,512),"quad"), quad_order "fifth", all-Dirichlet, float32:
+1,050,625 dofs on a 1025x1025 lattice, 25 diagonals; the same matrix as
+poisson-patch-1M) and the solver routes beside the V-cycle:
+
+10. lattice_setup    — generic assembly at u=0 -> ELL -> build_dia_plan ->
+                     DiaPlan.apply -> build_stencil (S), and the
+                     scatter-free lattice assembly (R, S2); S2 must equal S
+                     and R the generic residual to float32 rounding;
+                     seconds of each route;
+11. lattice_kernel   — hold kernels B4 (DIA) and B3 (2-D stencil) against
+                     their plain versions on this operator and on
+                     random-data operators (f32 and f64), time both, their
+                     plain versions, the generic ELL matvec and one
+                     torch.sparse CSR matvec of the same matrix; HBM bound
+                     of each call (see lattice_kernel_work) and of the
+                     nonzeros alone; B2's and CSR's times of phase 6 beside
+                     them;
+12. lattice_main     — (a) the normalised power sweep x <- A x / max|A x|
+                     from x = 1, 10 + 400 steps, through B3, B4 and the ELL
+                     operator: nnz/s of each, the three must agree;
+                     (b) -Lap u = 2 pi^2 sin(pi x) sin(pi y) by CG on the
+                     stencil operator, preconditioned by a degree-3
+                     Chebyshev sweep, rtol 1e-4: iterations, nodal error
+                     against sin(pi x) sin(pi y), B3 launches;
+   (--profile: one more CG solve under torch.profiler);
+13. lattice_reference — set-up, sweep and CG solve at n=16 on the card
+                     (float32) and the host (float64) must agree;
+14. cycles_reference — the small cavity on the card with mg_cycle W, F and
+                     K (K through FGMRES) and with operator="matrix_free"
+                     must converge and agree with the V-cycle solve.
+
 Then the card's name and power limit, the kernel table as one JSON line,
 and the final status line.
 """
@@ -76,6 +108,8 @@ COARSE_CELLS = 16                 # cavity-128
 LEVELS = 4
 PATCH_COARSE, PATCH_LEVELS = 32, 5    # poisson-patch-1M
 ELAST_COARSE, ELAST_LEVELS = 16, 5    # elasticity-patch
+LATTICE_N = 512                       # poisson-lattice-512
+SWEEP_WARM, SWEEP_STEPS = 10, 400
 # max nodal error of the float32 poisson-patch-1M solve: 2x the float32
 # floor, 0.0123 for an exact solve of the card's float32 data
 # (tools/torch_patch_f32_limit.py --device cuda); the solve reaches 0.0120
@@ -92,13 +126,19 @@ PATCH_ERR_MAX = 2.5e-2
 RESIDUAL_SLACK = {"patch_main": 100.0, "patch_elasticity": 1000.0}
 
 
+# the measured keys of a row of the final kernel table
+KERNEL_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+               "library_ms")
+
+
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
 def cavity_system(coarse: int, levels: int, device, dtype, rtol: float,
-                  max_nonlinear: int):
-    """The lid-driven cavity through the port's public entry points."""
+                  max_nonlinear: int, **config):
+    """The lid-driven cavity through the port's public entry points;
+    ``config`` overrides fields of its SolverConfig."""
     from femus_tpu_torch.assembly.forms import navier_stokes
     from femus_tpu_torch.mesh.generation import unit_box
     from femus_tpu_torch.mesh.multilevel import MultiLevelMesh
@@ -140,6 +180,10 @@ def cavity_system(coarse: int, levels: int, device, dtype, rtol: float,
     cfg.restart = 60
     cfg.max_outer = 10
     cfg.max_nonlinear = max_nonlinear
+    for key, value in config.items():
+        if not hasattr(cfg, key):
+            raise AttributeError(f"SolverConfig has no field {key!r}")
+        setattr(cfg, key, value)
     sys_.init(device=device, dtype=dtype)
     return sys_, ml_sol
 
@@ -353,18 +397,16 @@ def _all_on_cuda(sys_) -> bool:
     return all(t.is_cuda for t in tensors)
 
 
-def phase_profile(sys_, u, label: str) -> None:
-    """One more solve step from state ``u`` under torch.profiler: device
-    time by kernel and the device's busy share of the step."""
+def _profiled(fn) -> tuple:
+    """``fn()`` under torch.profiler: (its result, wall seconds, device
+    time by kernel and the device's busy share of the call)."""
     from torch.profiler import ProfilerActivity, profile
 
-    step = sys_.step_fn(-1)
-    step(u)                                   # warm
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        out = step(u)
+        out = fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     kernels = [e for e in prof.events()
@@ -376,12 +418,29 @@ def phase_profile(sys_, u, label: str) -> None:
         d[0] += 1
         d[1] += e.time_range.elapsed_us()
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
+    return out, {"device_busy_s": busy_us * 1e-6,
+                 "idle_share": 1.0 - busy_us * 1e-6 / wall,
+                 "n_kernels": len(kernels),
+                 "top": [{"name": n[:60], "calls": c, "ms": us * 1e-3}
+                         for n, (c, us) in top]}, wall
+
+
+def phase_profile(sys_, u, label: str) -> None:
+    """One more solve step from state ``u`` under torch.profiler: device
+    time by kernel and the device's busy share of the step."""
+    step = sys_.step_fn(-1)
+    step(u)                                   # warm
+    out, rep, wall = _profiled(lambda: step(u))
     emit({"phase": "profile", "system": label, "step_wall_s": wall,
-          "gmres_iters": out.lin_iters, "device_busy_s": busy_us * 1e-6,
-          "idle_share": 1.0 - busy_us * 1e-6 / wall,
-          "n_kernels": len(kernels),
-          "top": [{"name": n[:60], "calls": c, "ms": us * 1e-3}
-                  for n, (c, us) in top]})
+          "gmres_iters": out.lin_iters, **rep})
+
+
+def phase_lattice_profile(ops) -> None:
+    """One more Chebyshev-CG solve on the lattice operator under
+    torch.profiler (the solve of lattice_main, already warm)."""
+    (_, info, _), rep, wall = _profiled(lambda: lattice_cg(ops))
+    emit({"phase": "profile", "system": "poisson-lattice-512",
+          "solve_wall_s": wall, "cg_iters": info.iters, **rep})
 
 
 def phase_reference() -> None:
@@ -588,6 +647,377 @@ def phase_patch_reference() -> None:
         raise AssertionError(f"card and host patch solutions differ: {rep}")
 
 
+def lattice_operators(n: int, device, dtype) -> dict:
+    """The lattice operator of an n x n Q2 Poisson box by both routes:
+    generic assembly -> ELL (A) -> DIA (D) -> stencil (S), and the
+    scatter-free lattice assembly (R2, S2), with the seconds of each route
+    (the lattice route reuses the assembler's device tables)."""
+    from femus_tpu_torch.algebra.dia import build_dia_plan
+    from femus_tpu_torch.algebra.stencil import build_stencil
+    from femus_tpu_torch.assembly.bc import generate_bdc
+    from femus_tpu_torch.assembly.engine import Assembler, Unknown
+    from femus_tpu_torch.assembly.forms import poisson
+    from femus_tpu_torch.assembly.lattice import (build_lattice_plan,
+                                                  make_lattice_assemble_fn)
+    from femus_tpu_torch.mesh.generation import unit_box
+
+    def sync():
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
+
+    pi = np.pi
+    t0 = time.perf_counter()
+    asm = Assembler(unit_box((n, n), "quad"), [Unknown("u", "biquadratic")],
+                    quad_order="fifth", dtype=dtype, device=device)
+    asm.set_volume_form(poisson(
+        "u", "biquadratic", rhs=lambda x: 2 * pi ** 2
+        * torch.sin(pi * x[:, 0]) * torch.sin(pi * x[:, 1])))
+    generate_bdc(asm, lambda var, x, grp, t: (True, 0.0))
+    tables = asm.device_tables_cached()
+    u0 = torch.zeros(asm.n_dofs, dtype=dtype, device=device)
+    R, data = asm.make_assemble_fn(pass_tables=True)(u0, tables)
+    A = asm.op_with(data, tables["ell_cols"])
+    plan = build_dia_plan(asm.pattern, max_diags=64)
+    D = plan.apply(data, asm.pattern.n_rows)
+    S = build_stencil(D, row_width=2 * n + 1)
+    sync()
+    t_generic = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    lplan = build_lattice_plan(asm)
+    R2, S2 = make_lattice_assemble_fn(asm, lplan)(u0, tables)
+    sync()
+    t_lattice = time.perf_counter() - t0
+    return {"asm": asm, "A": A, "D": D, "S": S, "R": R, "R2": R2, "S2": S2,
+            "ell_data": data, "generic_s": t_generic,
+            "lattice_s": t_lattice}
+
+
+def phase_lattice_setup() -> dict:
+    ops = lattice_operators(LATTICE_N, "cuda", torch.float32)
+    S, S2 = ops["S"], ops["S2"]
+    # the two routes order their offsets differently: compare slab by slab
+    order = [S2.offsets.index(o) for o in S.offsets]
+    scale = float(S.data.abs().max())
+    s_err = float((S2.data[order] - S.data).abs().max())
+    r_scale = float(ops["R"].abs().max())
+    r_err = float((ops["R2"] - ops["R"]).abs().max())
+    halo = max(max(abs(di), abs(dj)) for di, dj in S.offsets)
+    # both routes sum the same element entries in float32, the generic one
+    # with atomics in a varying order: a few ulps of the largest entry
+    tol = 1e-5
+    emit({"phase": "lattice_setup", "n_dofs": S.n_rows, "grid": S.grid,
+          "nnz": int(ops["asm"].pattern.nnz), "offsets": len(S.offsets),
+          "halo": halo, "generic_s": ops["generic_s"],
+          "lattice_s": ops["lattice_s"], "stencil_max_abs_diff": s_err,
+          "stencil_scale": scale, "residual_max_abs_diff": r_err,
+          "residual_scale": r_scale, "rtol": tol})
+    if len(S.offsets) != 25 or halo > 2 or set(S2.offsets) != set(S.offsets):
+        raise AssertionError(f"lattice offsets {S.offsets}")
+    if not (s_err <= tol * scale and r_err <= tol * r_scale):
+        raise AssertionError("lattice assembly disagrees with the generic "
+                             f"route: {s_err}/{scale}, {r_err}/{r_scale}")
+    return ops
+
+
+def lattice_kernel_work(offsets, shape, isz: int) -> tuple:
+    """(bytes, flops) kernel B4 (``offsets``: ints, ``shape`` = (n,)) or B3
+    (``offsets``: (di, dj) pairs, ``shape`` = (N, M)) must move and do:
+    every weight whose x index lies inside the vector or lattice (a term
+    outside multiplies zero and is not read), read once; x read once and y
+    written once."""
+    if len(shape) == 1:
+        n = shape[0]
+        weights = sum(max(n - abs(o), 0) for o in offsets)
+    else:
+        N, M = shape
+        n = N * M
+        weights = sum(max(N - abs(di), 0) * max(M - abs(dj), 0)
+                      for di, dj in offsets)
+    return (weights + 2 * n) * isz, 2 * weights
+
+
+def _held(y_k, y_p, y_abs, rtol) -> dict:
+    err = float((y_k - y_p).abs().max())
+    scale = float(y_abs.max())
+    return {"max_abs_err": err, "scale": scale, "rtol": rtol,
+            "ok": err <= rtol * scale}
+
+
+def phase_lattice_kernel(ops, patch_row) -> dict:
+    """B4 and B3 against their plain versions on the lattice operator and
+    on random-data operators; times and bounds on the lattice operator."""
+    from femus_tpu_torch.algebra import dia, stencil
+
+    gen = torch.Generator(device="cpu").manual_seed(0)
+
+    def rand(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=gen, dtype=torch.float64
+                           ).to(dtype).cuda()
+
+    A, D, S = ops["A"], ops["D"], ops["S"]
+    n = D.n
+    x = rand(n)
+    out = {"n": n, "nnz": int(ops["asm"].pattern.nnz),
+           "K": len(D.offsets), "grid": S.grid}
+    checks = {}
+    # the kernel fuses multiply-adds and skips out-of-range terms, the plain
+    # version does neither: a float32 / float64 rounding budget of
+    # max(|A| |x|), as for B1 and B2
+    y4 = dia.spmv_dia_cuda(D, x)
+    y3 = stencil.spmv_stencil_cuda(S, x)
+    torch.cuda.synchronize()
+    checks["dia_assembled_f32"] = _held(
+        y4, dia._matvec_plain(D.data, D.offsets, x),
+        dia._matvec_plain(D.data.abs(), D.offsets, x.abs()), 1e-5)
+    checks["stencil_assembled_f32"] = _held(
+        y3, stencil._matvec_plain(S.data, S.offsets, S.grid, x),
+        stencil._matvec_plain(S.data.abs(), S.offsets, S.grid, x.abs()),
+        1e-5)
+    checks["stencil_vs_dia_vs_ell"] = {
+        "max_abs_diff": float(max((y3 - y4).abs().max(),
+                                  (y3 - A @ x).abs().max())),
+        "scale": checks["dia_assembled_f32"]["scale"], "rtol": 1e-5}
+    checks["stencil_vs_dia_vs_ell"]["ok"] = (
+        checks["stencil_vs_dia_vs_ell"]["max_abs_diff"]
+        <= 1e-5 * checks["stencil_vs_dia_vs_ell"]["scale"])
+    # random data: the flattened form wraps across lattice rows, the 2-D
+    # form reads zero there; each against its own plain version
+    nr, offs_r = 2 ** 20 + 3, (-1025, -1, 0, 1, 1025)
+    grid_r = (1023, 1029)
+    soffs_r = ((-8, -8), (-8, 8), (-3, 0), (0, -8), (0, 0), (0, 1), (2, -5),
+               (8, -8), (8, 8))
+    for name, dt, rtol in (("f32", torch.float32, 1e-5),
+                           ("f64", torch.float64, 1e-12)):
+        Dr = dia.DiaOp(rand(len(offs_r), nr, dtype=dt), offs_r, nr)
+        xr = rand(nr, dtype=dt)
+        yk = dia.spmv_dia_cuda(Dr, xr)
+        torch.cuda.synchronize()
+        checks["dia_random_" + name] = _held(
+            yk, dia._matvec_plain(Dr.data, offs_r, xr),
+            dia._matvec_plain(Dr.data.abs(), offs_r, xr.abs()), rtol)
+        Sr = stencil.StencilOp(rand(len(soffs_r), *grid_r, dtype=dt),
+                               soffs_r, grid_r)
+        xr = rand(Sr.n_rows, dtype=dt)
+        yk = stencil.spmv_stencil_cuda(Sr, xr)
+        torch.cuda.synchronize()
+        checks["stencil_random_" + name] = _held(
+            yk, stencil._matvec_plain(Sr.data, soffs_r, grid_r, xr),
+            stencil._matvec_plain(Sr.data.abs(), soffs_r, grid_r, xr.abs()),
+            rtol)
+        del Dr, Sr, xr, yk
+    out["checks"] = checks
+    # library yardstick: one torch.sparse CSR matvec of the same matrix
+    pat = ops["asm"].pattern
+    valid = torch.as_tensor(pat.valid, device="cuda")
+    cols = torch.as_tensor(pat.cols, dtype=torch.int64, device="cuda")
+    counts = valid.sum(dim=1)
+    crow = torch.cat([counts.new_zeros(1), counts.cumsum(0)])
+    csr = torch.sparse_csr_tensor(crow, cols[valid], ops["ell_data"][valid],
+                                  check_invariants=False, size=(n, n))
+    library_err = float((csr @ x - y3).abs().max())
+    isz = D.data.element_size()
+    nnz_bytes = out["nnz"] * isz + 2 * n * isz
+    kernels = {}
+    # timed in turns (kernel, plain, kernel) so both kernels see the same
+    # card state; the second kernel timing is the one reported
+    for name, kern, plain, work in (
+            ("dia_spmv", lambda: dia.spmv_dia_cuda(D, x),
+             lambda: dia._matvec_plain(D.data, D.offsets, x),
+             lattice_kernel_work(D.offsets, (n,), isz)),
+            ("stencil_spmv", lambda: stencil.spmv_stencil_cuda(S, x),
+             lambda: stencil._matvec_plain(S.data, S.offsets, S.grid, x),
+             lattice_kernel_work(S.offsets, S.grid, isz))):
+        first_ms = time_ms(kern)
+        plain_ms = time_ms(plain, reps=20)
+        ms = time_ms(kern)
+        t_bytes = work[0] / HBM_BYTES_PER_S * 1e3
+        t_ops = work[1] / F32_FLOPS_PER_S * 1e3
+        kernels[name] = {
+            "ms": ms, "first_ms": first_ms, "plain_ms": plain_ms,
+            "bytes": work[0], "slab_bytes": D.data.numel() * isz,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "pct_of_bound": 100.0 * max(t_bytes, t_ops) / ms,
+            "bound_nnz_ms": nnz_bytes / HBM_BYTES_PER_S * 1e3}
+    kernels["dia_spmv"]["max_abs_err"] = \
+        checks["dia_assembled_f32"]["max_abs_err"]
+    kernels["stencil_spmv"]["max_abs_err"] = \
+        checks["stencil_assembled_f32"]["max_abs_err"]
+    out.update(kernels)
+    out["ell_matvec_ms"] = time_ms(lambda: A @ x, reps=20)
+    out["library_ms"] = time_ms(lambda: csr @ x)
+    out["library_err"] = library_err
+    # the same matrix through the patch format (phase patch_kernel)
+    out["same_matrix"] = {"patch_stencil_ms": patch_row["ms"],
+                          "patch_matvec_ms": patch_row["matvec_ms"],
+                          "patch_phase_library_ms": patch_row["library_ms"]}
+    emit({"phase": "lattice_kernel", **out})
+    bad = [k for k, c in checks.items() if not c["ok"]]
+    if bad:
+        raise AssertionError(f"lattice kernels disagree: {bad}")
+    for name in ("dia_spmv", "stencil_spmv"):
+        kernels[name]["library_ms"] = out["library_ms"]
+    return kernels
+
+
+def power_sweep(matvec, n: int, dtype, device, steps: int, x=None):
+    """``steps`` of x <- w / max|w|, w = A x, from x = 1: (x, last max|w|,
+    device ms of the whole sweep by CUDA events, None on the host)."""
+    x = torch.ones(n, dtype=dtype, device=device) if x is None else x
+    on_card = x.is_cuda
+    if on_card:
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+    top = None
+    for _ in range(steps):
+        w = matvec(x)
+        top = w.abs().max()
+        x = w / top
+    if on_card:
+        e1.record()
+        e1.synchronize()
+    return x, float(top), (e0.elapsed_time(e1) if on_card else None)
+
+
+def lattice_cg(ops, maxiter: int = 2000):
+    """-Lap u = 2 pi^2 sin(pi x) sin(pi y) on the lattice operator with the
+    package's own pieces: CG on StencilOp.matvec, preconditioned by one
+    degree-3 Chebyshev sweep from a zero guess (diagonal from
+    DiaOp.diagonal(), lambda_max by power iteration), rhs -R of the lattice
+    assembly at u = 0.  Returns (u, SolveInfo, max nodal error)."""
+    from femus_tpu_torch.algebra.krylov import cg
+    from femus_tpu_torch.algebra.smoothers import (chebyshev_smoother,
+                                                   power_lambda_max)
+
+    S, diag = ops["S2"], ops["D"].diagonal()
+    lam = power_lambda_max(S.matvec, 1.0 / diag, S.n_rows)
+    smooth = chebyshev_smoother(S.matvec, diag, lam, degree=3)
+    u, info = cg(S.matvec, -ops["R2"],
+                 M=lambda r: smooth(r, torch.zeros_like(r)), tol=1e-4,
+                 maxiter=maxiter)
+    asm = ops["asm"]
+    xy = asm.mesh.coords[asm.dofmaps["u"].nodes]
+    exact = np.sin(np.pi * xy[:, 0]) * np.sin(np.pi * xy[:, 1])
+    return u, info, float(np.abs(u.double().cpu().numpy() - exact).max())
+
+
+def phase_lattice_main(ops) -> dict:
+    from femus_tpu_torch.systems.system import launch_counts
+
+    n, nnz = ops["D"].n, int(ops["asm"].pattern.nnz)
+    rep = {"phase": "lattice_main", "n_dofs": n, "nnz": nnz}
+    # (a) the normalised power sweep through each format
+    reset_launches()
+    sweeps = {}
+    for name, op in (("stencil_spmv", ops["S"]), ("dia_spmv", ops["D"]),
+                     ("ell", ops["A"])):
+        x10, _, _ = power_sweep(op.matvec, n, torch.float32, "cuda",
+                                SWEEP_WARM)
+        x, top, ms = power_sweep(op.matvec, n, torch.float32, "cuda",
+                                 SWEEP_STEPS, x=x10)
+        sweeps[name] = (x10, top)
+        rep["sweep_" + name] = {"ms_per_step": ms / SWEEP_STEPS,
+                                "nnz_per_s": nnz * SWEEP_STEPS / (ms * 1e-3),
+                                "eig_estimate": top,
+                                "finite": bool(torch.isfinite(x).all())}
+    rep["sweep_launches"] = launch_counts()
+    ref10, ref_top = sweeps["ell"]
+    rep["sweep_x10_max_diff"] = max(
+        float((sweeps[k][0] - ref10).abs().max())
+        for k in ("stencil_spmv", "dia_spmv"))
+    rep["sweep_eig_rel_diff"] = max(
+        abs(sweeps[k][1] - ref_top) / abs(ref_top)
+        for k in ("stencil_spmv", "dia_spmv"))
+    # (b) the Chebyshev-CG solve on the stencil operator
+    reset_launches()
+    t0 = time.perf_counter()
+    u, info, err = lattice_cg(ops)
+    torch.cuda.synchronize()
+    rep.update({"cg_wall_s": time.perf_counter() - t0, "cg_iters": info.iters,
+                "cg_residual": info.residual, "cg_target": info.target,
+                "cg_converged": info.converged, "max_nodal_err": err,
+                "cg_launches": launch_counts(),
+                "fields_finite": bool(torch.isfinite(u).all())})
+    emit(rep)
+    if not all(rep["sweep_" + k]["finite"] for k in sweeps):
+        raise AssertionError("lattice_main: a sweep left the finite range")
+    # x is normalised to max|x| = 1, so an absolute difference is relative
+    if not (rep["sweep_x10_max_diff"] <= 1e-5
+            and rep["sweep_eig_rel_diff"] <= 1e-3):
+        raise AssertionError("lattice_main: the formats' sweeps disagree")
+    if rep["sweep_launches"]["dia_spmv"] != SWEEP_WARM + SWEEP_STEPS:
+        raise AssertionError("lattice_main: the DIA sweep did not run B4")
+    if not (info.converged and rep["fields_finite"]):
+        raise AssertionError(f"lattice_main: CG failed ({info})")
+    if err >= PATCH_ERR_MAX:
+        raise AssertionError(f"lattice_main: nodal error {err}")
+    if rep["cg_launches"]["stencil_spmv"] <= 0:
+        raise AssertionError("lattice_main: the solve launched no B3")
+    return rep
+
+
+def phase_lattice_reference() -> None:
+    """Set-up, sweep and CG solve at n=16: the card's float32 against the
+    host's float64."""
+    got = {}
+    for device, dtype in (("cuda", torch.float32), ("cpu", torch.float64)):
+        ops = lattice_operators(16, device, dtype)
+        n = ops["D"].n
+        sw = {k: power_sweep(ops[k].matvec, n, dtype, device, SWEEP_WARM)
+              for k in ("S", "D", "A")}
+        u, info, err = lattice_cg(ops)
+        got[device] = {
+            "S": ops["S"].data.double().cpu().numpy(),
+            "S2": ops["S2"].data.double().cpu().numpy(),
+            "R2": ops["R2"].double().cpu().numpy(),
+            "sweep": np.stack([v[0].double().cpu().numpy()
+                               for v in sw.values()]),
+            "eig": np.array([v[1] for v in sw.values()]),
+            "u": u.double().cpu().numpy(), "iters": info.iters, "err": err,
+            "converged": info.converged}
+    rep = {"phase": "lattice_reference", "n_dofs": int(got["cpu"]["u"].size),
+           "cg_iters": {d: got[d]["iters"] for d in got},
+           "max_nodal_err": {d: got[d]["err"] for d in got}}
+    for key in ("S", "S2", "R2", "sweep", "eig", "u"):
+        ref = got["cpu"][key]
+        rep[key] = float(np.linalg.norm(got["cuda"][key] - ref)
+                         / np.linalg.norm(ref))
+    emit(rep)
+    worst = max(rep[k] for k in ("S", "S2", "R2", "sweep", "eig", "u"))
+    if not (worst < 1e-4 and got["cuda"]["converged"]
+            and got["cpu"]["converged"]):
+        raise AssertionError(f"card and host lattice paths differ: {rep}")
+
+
+def phase_cycles_reference() -> None:
+    """The small cavity on the card through the solver routes beside the
+    V-cycle: each must converge and agree with the V-cycle solve."""
+    routes = {"V": {}, "W": {"mg_cycle": "W"}, "F": {"mg_cycle": "F"},
+              "K": {"mg_cycle": "K"},
+              "matrix_free": {"operator": "matrix_free",
+                              "interleave_dofs": False}}
+    rep = {"phase": "cycles_reference"}
+    ref = None
+    for name, config in routes.items():
+        sys_, ml_sol = cavity_system(8, 3, "cuda", torch.float32, rtol=1e-6,
+                                     max_nonlinear=4, **config)
+        sys_.solve()
+        fields = np.concatenate([ml_sol.sol[-1][n] for n in ("u", "v", "p")])
+        ref = fields if ref is None else ref
+        rep[name] = {
+            "gmres_iters": [h["lin_iters"] for h in sys_.history],
+            "converged": all(h["converged"] for h in sys_.history),
+            "rel_diff": float(np.linalg.norm(fields - ref)
+                              / np.linalg.norm(ref)),
+            "outer": ("fgmres" if name == "K" else "gmres")}
+    rep["n_dofs"] = int(ref.size)
+    emit(rep)
+    for name in routes:
+        if not (rep[name]["converged"] and rep[name]["rel_diff"] < 1e-3):
+            raise AssertionError(f"cycles_reference: route {name} failed: "
+                                 f"{rep[name]}")
+
+
 def card_line() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -598,8 +1028,9 @@ def card_line() -> str:
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", action="store_true",
-                    help="also profile one Newton step and one patch solve "
-                         "step (device time by kernel, idle share)")
+                    help="also profile one Newton step, one patch solve "
+                         "step and one lattice CG solve (device time by "
+                         "kernel, idle share)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -648,6 +1079,15 @@ def main() -> int:
                           setup["elasticity_s"])
         del setup
         phase_patch_reference()
+        # slice 3: the lattice operator path and the other solver routes
+        ops = phase_lattice_setup()
+        k34 = phase_lattice_kernel(ops, k2)
+        main3 = phase_lattice_main(ops)
+        if args.profile:
+            phase_lattice_profile(ops)
+        del ops
+        phase_lattice_reference()
+        phase_cycles_reference()
     except Exception:
         traceback.print_exc()
         return 1
@@ -665,7 +1105,17 @@ def main() -> int:
         "launches": main2["kernel_launches"]["patch_stencil"],
         "max_abs_err": k2["max_abs_err"], "ms": k2["ms"],
         "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"],
-        "bound_by": k2["bound_by"], "library_ms": k2["library_ms"]}]})
+        "bound_by": k2["bound_by"], "library_ms": k2["library_ms"]}, {
+        "name": "dia_spmv", "route": "cuda",
+        "source": "femus_tpu_torch/algebra/csrc/dia_spmv.cu",
+        "replaces": "femus_tpu/algebra/dia.py:106",
+        "launches": main3["sweep_launches"]["dia_spmv"],
+        **{key: k34["dia_spmv"][key] for key in KERNEL_KEYS}}, {
+        "name": "stencil_spmv", "route": "cuda",
+        "source": "femus_tpu_torch/algebra/csrc/stencil_spmv.cu",
+        "replaces": "femus_tpu/algebra/stencil.py:109",
+        "launches": main3["cg_launches"]["stencil_spmv"],
+        **{key: k34["stencil_spmv"][key] for key in KERNEL_KEYS}}]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -23,7 +23,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 # every kernel source of the package, relative to the package directory
 KERNEL_SOURCES = ["algebra/csrc/bell_spmv.cu",
-                  "algebra/csrc/patch_stencil.cu"]
+                  "algebra/csrc/patch_stencil.cu",
+                  "algebra/csrc/dia_spmv.cu",
+                  "algebra/csrc/stencil_spmv.cu"]
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 

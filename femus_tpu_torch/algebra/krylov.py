@@ -1,4 +1,4 @@
-"""Krylov solvers: CG and restarted GMRES (CGS2).
+"""Krylov solvers: CG, restarted GMRES and FGMRES (CGS2), Richardson.
 
 Operators and preconditioners are callables ``A(x) -> y`` on device
 tensors, so assembled SpMV, blocked-ELL SpMV and multigrid cycles compose
@@ -58,29 +58,32 @@ def _givens(a: float, b: float):
     return a / h, b / h
 
 
-def gmres(A: Callable, b: torch.Tensor, x0=None, M: Optional[Callable] = None,
-          tol: float = 1e-10, atol: float = 0.0, restart: int = 30,
-          max_restarts: int = 20):
-    """Restarted GMRES(m), left-preconditioned (solves M A x = M b), CGS2
-    orthogonalization (two global reductions per iteration), Givens
-    rotations with early exit once |g[j]| <= max(tol*||M b||, atol).
-    ``converged`` reports that estimate; ``residual`` is the true
-    ||M (b - A x)|| at the returned x, to hold against ``target``.
+def _gmres_core(opM: Callable, opA: Callable, b: torch.Tensor, x0, M,
+                tol: float, atol: float, restart: int, max_restarts: int,
+                flexible: bool):
+    """Shared GMRES core: Givens-rotated Hessenberg with per-iteration
+    residual tracking and early exit at both loop levels, CGS2
+    orthogonalization (two global reductions per iteration).
 
-    The (m+1)-vector basis lives on the device; the small Hessenberg
-    least-squares problem is solved on the host in float64."""
+    flexible=False: left-preconditioned (``opM`` = M; solves M A x = M b).
+    flexible=True: right-preconditioned FGMRES (``opM`` = identity) that
+    applies ``M`` to each basis vector and stores the results Z.
+
+    The (m+1)-vector basis (and Z) lives on the device; the small
+    Hessenberg least-squares problem is solved on the host in float64."""
     x = torch.zeros_like(b) if x0 is None else x0
-    M = M or (lambda r: r)
     n, m = b.shape[0], restart
 
     def resid(x):
-        return M(b - A(x))
+        return opM(b - opA(x))
 
-    target = max(tol * float(torch.linalg.norm(M(b))), atol)
+    target = max(tol * float(torch.linalg.norm(opM(b))), atol)
     r = resid(x)
     res = float(torch.linalg.norm(r))
     total = 0
     V = torch.zeros((m + 1, n), dtype=b.dtype, device=b.device)
+    Z = torch.zeros((m, n), dtype=b.dtype, device=b.device) if flexible \
+        else None
     for k in range(max_restarts):
         if res <= target:
             break
@@ -94,7 +97,11 @@ def gmres(A: Callable, b: torch.Tensor, x0=None, M: Optional[Callable] = None,
         g[0] = beta
         j = 0
         while j < m and abs(g[j]) > target:
-            w = M(A(V[j]))
+            if flexible:
+                Z[j] = M(V[j])
+                w = opA(Z[j])
+            else:
+                w = opM(opA(V[j]))
             # CGS2 against the j+1 basis vectors so far
             Vj = V[:j + 1]
             h1 = Vj @ w
@@ -120,9 +127,45 @@ def gmres(A: Callable, b: torch.Tensor, x0=None, M: Optional[Callable] = None,
             j += 1
         if j:
             y = scipy.linalg.solve_triangular(H[:j, :j], g[:j], lower=False)
-            x = x + V[:j].T @ torch.as_tensor(y, dtype=b.dtype,
-                                              device=b.device)
+            basis = Z if flexible else V
+            x = x + basis[:j].T @ torch.as_tensor(y, dtype=b.dtype,
+                                                  device=b.device)
         total += j
         res = abs(g[j])
     return x, SolveInfo(total, float(torch.linalg.norm(resid(x))),
                         bool(res <= target), target)
+
+
+def gmres(A: Callable, b: torch.Tensor, x0=None, M: Optional[Callable] = None,
+          tol: float = 1e-10, atol: float = 0.0, restart: int = 30,
+          max_restarts: int = 20):
+    """Restarted GMRES(m), left-preconditioned (solves M A x = M b), with
+    early exit once |g[j]| <= max(tol*||M b||, atol).  ``converged``
+    reports that estimate; ``residual`` is the true ||M (b - A x)|| at the
+    returned x, to hold against ``target``."""
+    M = M or (lambda r: r)
+    return _gmres_core(M, A, b, x0, M, tol, atol, restart, max_restarts,
+                       flexible=False)
+
+
+def fgmres(A: Callable, b: torch.Tensor, x0=None,
+           M: Optional[Callable] = None, tol: float = 1e-10,
+           atol: float = 0.0, restart: int = 30, max_restarts: int = 20):
+    """Flexible GMRES (right preconditioning, Saad 1993): tolerates
+    nonlinear/varying preconditioners (inner Krylov solves, K-cycles) by
+    storing the preconditioned basis Z.  ``residual`` and ``target`` are
+    unpreconditioned: ||b - A x|| against max(tol*||b||, atol)."""
+    M = M or (lambda r: r)
+    return _gmres_core(lambda r: r, A, b, x0, M, tol, atol, restart,
+                       max_restarts, flexible=True)
+
+
+def richardson(A: Callable, b: torch.Tensor, x0=None,
+               M: Optional[Callable] = None, scale: float = 1.0,
+               iters: int = 10) -> torch.Tensor:
+    """Fixed-iteration preconditioned Richardson: x += scale * M(b - A x)."""
+    x = torch.zeros_like(b) if x0 is None else x0
+    M = M or (lambda r: r)
+    for _ in range(iters):
+        x = x + scale * M(b - A(x))
+    return x

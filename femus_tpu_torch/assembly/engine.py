@@ -320,6 +320,55 @@ class Assembler:
         })
         return t
 
+    def _element_fn(self, tables, aux_scalars=None) -> Callable:
+        """``all_elems(ulT (ndt, ne)) -> (ndt, ne)``: the volume form over
+        all elements at once, element-local dofs in, element residuals
+        out."""
+        aux = dict(aux_scalars or {})
+        aux["group"] = tables["elem_group"]
+        ops = ElemOpsBatched(tables["tabs"], tables["qweights"],
+                             tables["coords_e"].permute(1, 2, 0), self.dim)
+
+        def all_elems(ulT):
+            out = self.volume_form(ops, self._split(ulT), aux)
+            parts = []
+            for un in self.unknowns:
+                r = out.get(un.name)
+                if r is None:      # forms may omit rows (zeros)
+                    sl = self.local_slices[un.name]
+                    r = ulT.new_zeros((sl.stop - sl.start, ulT.shape[1]))
+                parts.append(r)
+            return torch.cat(parts)
+
+        return all_elems
+
+    def _scatter_rows(self, tables, vT) -> torch.Tensor:
+        """Sum element-local row values ``vT (ndt, ne)`` into a global
+        ``(n_dofs,)`` vector."""
+        out = torch.zeros(self.n_dofs, dtype=self.dtype, device=self.device)
+        return out.index_add_(0, tables["edofs"].reshape(-1),
+                              vT.T.reshape(-1))
+
+    def element_terms(self, u, tables, aux_scalars=None,
+                      with_jacobian: bool = True):
+        """Element residuals ``rT (ndt, ne)`` of the volume form at ``u``
+        and, with ``with_jacobian``, their Jacobians ``jacT (ndt_j, ndt_i,
+        ne)`` (else None): the forward derivative of all element residuals
+        along the ``ndt`` unit tangents (``torch.func.jvp`` under ``vmap``;
+        exact, because element residuals are local).  Every matrix layout
+        (ELL, patch stencil, lattice stencil, diagonal) scatters these."""
+        all_elems = self._element_fn(tables, aux_scalars)
+        u = u.to(device=self.device, dtype=self.dtype)
+        u_locT = u[tables["edofs"]].T                    # (ndt, ne)
+        rT = all_elems(u_locT)
+        if not with_jacobian:
+            return rT, None
+        eye = torch.eye(self.ndt, dtype=self.dtype, device=self.device)
+        tang = eye[:, :, None].expand(self.ndt, self.ndt, u_locT.shape[1])
+        jacT = torch.func.vmap(
+            lambda tg: torch.func.jvp(all_elems, (u_locT,), (tg,))[1])(tang)
+        return rT, jacT
+
     def make_assemble_fn(self, with_jacobian: bool = True,
                          pass_tables: bool = False):
         """Assembly function.
@@ -330,45 +379,18 @@ class Assembler:
         supplied per call.  ``aux_scalars`` (e.g. ``nu``) reach the form's
         ``aux`` dict.
 
-        The volume form runs once over all elements through
-        :class:`ElemOpsBatched`; the Jacobian is the forward derivative of
-        the element residuals along the ``ndt`` unit tangents; it lands in
-        ELL ``data (n_rows, width)`` or, with a patch layout, in the flat
-        patch-stencil weights."""
+        Element residuals and Jacobians come from :meth:`element_terms`;
+        the Jacobian lands in ELL ``data (n_rows, width)`` or, with a patch
+        layout, in the flat patch-stencil weights."""
         const_tables = None if pass_tables else self.device_tables()
 
         def assemble_t(u, tables, aux_scalars=None):
-            aux = dict(aux_scalars or {})
-            u = u.to(device=self.device, dtype=self.dtype)
-            u_locT = u[tables["edofs"]].T                    # (ndt, ne)
-            ne = u_locT.shape[1]
-            aux["group"] = tables["elem_group"]
-            ops = ElemOpsBatched(tables["tabs"], tables["qweights"],
-                                 tables["coords_e"].permute(1, 2, 0),
-                                 self.dim)
-
-            def all_elems(ulT):
-                out = self.volume_form(ops, self._split(ulT), aux)
-                parts = []
-                for un in self.unknowns:
-                    r = out.get(un.name)
-                    if r is None:      # forms may omit rows (zeros)
-                        sl = self.local_slices[un.name]
-                        r = ulT.new_zeros((sl.stop - sl.start, ne))
-                    parts.append(r)
-                return torch.cat(parts)
-
-            rT = all_elems(u_locT)                           # (ndt, ne)
-            R = torch.zeros(self.n_dofs, dtype=self.dtype, device=self.device)
-            R.index_add_(0, tables["edofs"].reshape(-1), rT.T.reshape(-1))
-            R = torch.where(tables["dir_mask"], 0.0, R)
+            rT, jacT = self.element_terms(u, tables, aux_scalars,
+                                          with_jacobian)
+            R = torch.where(tables["dir_mask"], 0.0,
+                            self._scatter_rows(tables, rT))
             if not with_jacobian:
                 return R, None
-            eye = torch.eye(self.ndt, dtype=self.dtype, device=self.device)
-            tang = eye[:, :, None].expand(self.ndt, self.ndt, ne)
-            jacT = torch.func.vmap(
-                lambda tg: torch.func.jvp(all_elems, (u_locT,), (tg,))[1]
-            )(tang)                                   # (ndt_j, ndt_i, ne)
             jac = jacT.permute(2, 1, 0).reshape(-1)   # (ne, ndt_i, ndt_j)
             if self.patch_tab is not None:
                 # every element scatters into its own patch's lattice slots
@@ -389,6 +411,42 @@ class Assembler:
             return assemble_t(u, const_tables, aux_scalars)
 
         return assemble
+
+    def make_diag_fn(self):
+        """(u, tables, aux_scalars=None) -> the Jacobian DIAGONAL
+        ``(n_dofs,)`` without global matrix data: the smoother scaling of
+        the matrix-free operator path.  Dirichlet rows get exactly 1."""
+
+        def diag_t(u, tables, aux_scalars=None):
+            _, jacT = self.element_terms(u, tables, aux_scalars)
+            dlocT = torch.diagonal(jacT, dim1=0, dim2=1).T    # (ndt, ne)
+            return torch.where(tables["dir_mask"], 1.0,
+                               self._scatter_rows(tables, dlocT))
+
+        return diag_t
+
+    def make_linearized_fn(self):
+        """(u, tables, aux_scalars=None) -> (R, jv): the residual at ``u``
+        (Dirichlet rows zeroed) and the action ``jv(v) = J(u) v`` of its
+        Jacobian WITHOUT Dirichlet elimination and without any global
+        matrix data — the fine operator of the matrix-free path.  The
+        element residuals are linearised once (``torch.func.linearize``,
+        element-local, so neither the gather nor the ``index_add_`` scatter
+        is differentiated); each ``jv`` is gather -> linear map -> scatter."""
+
+        def lin_t(u, tables, aux_scalars=None):
+            all_elems = self._element_fn(tables, aux_scalars)
+            u = u.to(device=self.device, dtype=self.dtype)
+            rT, jvp = torch.func.linearize(all_elems, u[tables["edofs"]].T)
+            R = torch.where(tables["dir_mask"], 0.0,
+                            self._scatter_rows(tables, rT))
+
+            def jv(v):
+                return self._scatter_rows(tables, jvp(v[tables["edofs"]].T))
+
+            return R, jv
+
+        return lin_t
 
     def op_with(self, data: torch.Tensor, cols: torch.Tensor = None):
         """Wrap assembled data as a device operator: ELL data -> SparseOp

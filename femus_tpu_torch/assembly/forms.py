@@ -1,4 +1,5 @@
-"""Ready-made weak forms (Poisson, steady Navier–Stokes, linear elasticity).
+"""Ready-made weak forms (Poisson, mass, nonlinear diffusion, steady
+Navier–Stokes, linear elasticity).
 
 Each form is a pure function ``form(ops, u, aux) -> {var: residual}`` over
 :class:`~femus_tpu_torch.assembly.engine.ElemOpsBatched`; Jacobians come
@@ -24,6 +25,33 @@ def poisson(var: str = "u", family: str = "biquadratic",
     def form(ops, u, aux):
         g = ops.grad(family, u[var])
         r = kappa * ops.tgrad(family, g)
+        if rhs is not None:
+            r = r - ops.t(family, ops.pointwise(rhs))
+        return {var: r}
+
+    return form
+
+
+def mass(var: str = "u", family: str = "biquadratic", coeff: float = 1.0):
+    """coeff * u (projection/mass term), composable."""
+
+    def form(ops, u, aux):
+        return {var: coeff * ops.t(family, ops.value(family, u[var]))}
+
+    return form
+
+
+def nonlinear_diffusion(var: str = "u", family: str = "biquadratic",
+                        a: Optional[Callable] = None,
+                        rhs: Optional[Callable] = None):
+    """-div(a(u) grad u) = f; ``a`` maps the (nq, ne) values of u at the
+    quadrature points to the diffusivity there (default 1 + u^2)."""
+    a = a or (lambda s: 1.0 + s * s)
+
+    def form(ops, u, aux):
+        uq = ops.value(family, u[var])
+        g = ops.grad(family, u[var])
+        r = ops.tgrad(family, a(uq)[:, None] * g)
         if rhs is not None:
             r = r - ops.t(family, ops.pointwise(rhs))
         return {var: r}

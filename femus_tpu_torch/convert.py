@@ -2,7 +2,8 @@
 
 The JAX package's objects hand over as plain numpy arrays (its operators'
 ``data``/``cols``, its BELL plan's index arrays and slab, its patch
-operators' weights and routing matrices, its solution fields), so both
+operators' weights and routing matrices, its DIA and lattice-stencil
+operators' data and offsets, its solution fields), so both
 packages can compute on the same operator and state.
 """
 from __future__ import annotations
@@ -14,8 +15,10 @@ import torch
 
 from . import resolve_device
 from .algebra.bell import BellDev, BellOp
+from .algebra.dia import DiaOp
 from .algebra.patchstencil import BlockPatchStencilOp, PatchStencilOp
 from .algebra.sparse import SparseOp
+from .algebra.stencil import StencilOp
 
 
 def sparse_op_from_numpy(data: np.ndarray, cols: np.ndarray, n_cols: int,
@@ -78,6 +81,29 @@ def patch_op_from_numpy(wt: np.ndarray, G_face: np.ndarray,
     meta = tuple(int(v) for v in meta)
     cls = BlockPatchStencilOp if len(meta) == 8 else PatchStencilOp
     return cls(w.contiguous(), *routing, meta)
+
+
+def dia_op_from_numpy(data: np.ndarray, offsets, n: int, device="cuda",
+                      dtype: Optional[torch.dtype] = None) -> DiaOp:
+    """DIA operator from its ``(K, n)`` data and its offsets — the fields
+    of either package's ``DiaOp``."""
+    device = resolve_device(device)
+    d = torch.as_tensor(np.array(data), dtype=dtype, device=device)
+    return DiaOp(d.contiguous(), tuple(int(o) for o in offsets), int(n))
+
+
+def stencil_op_from_numpy(data: np.ndarray, offsets, grid, device="cuda",
+                          dtype: Optional[torch.dtype] = None) -> StencilOp:
+    """Lattice-stencil operator from its data, ``(di, dj)`` offsets and
+    logical ``(N, M)`` grid — the fields of either package's ``StencilOp``.
+    The JAX package pads ``data`` to ``(K, Nt, Mp)`` tiles; the padding is
+    dropped, the port stores the logical ``(K, N, M)`` block."""
+    device = resolve_device(device)
+    N, M = (int(v) for v in grid)
+    d = torch.as_tensor(np.array(data)[:, :N, :M], dtype=dtype,
+                        device=device)
+    return StencilOp(d.contiguous(),
+                     tuple((int(di), int(dj)) for di, dj in offsets), (N, M))
 
 
 def solution_from_numpy(ml_sol, arrays: Dict[str, np.ndarray],

@@ -2,8 +2,10 @@
 preconditioned Krylov solves.
 
 Each level owns one solve step (assemble -> PtAP chain -> MG-preconditioned
-GMRES/CG -> correction); the Newton and F-cycle drives are short host loops
-around it.  Every tensor lives on the device given to :meth:`System.init`.
+GMRES/FGMRES/CG -> correction), or its matrix-free variant (linearised
+residual as the fine operator); the Newton and F-cycle drives are short
+host loops around it.  Every tensor lives on the device given to
+:meth:`System.init`.
 """
 from __future__ import annotations
 
@@ -17,10 +19,13 @@ import torch
 
 from .. import default_dtype, resolve_device
 from ..algebra.bell import bell_backed, build_bell_plan, spmv_bell_cuda
-from ..algebra.krylov import cg, gmres
-from ..algebra.mg import build_hierarchy, build_hierarchy_from_ops
+from ..algebra.dia import spmv_dia_cuda
+from ..algebra.krylov import cg, fgmres, gmres
+from ..algebra.mg import (build_hierarchy, build_hierarchy_from_ops,
+                          build_hierarchy_matfree)
 from ..algebra.patchstencil import spmv_patch_cuda
 from ..algebra.sparse import op_from_scipy
+from ..algebra.stencil import spmv_stencil_cuda
 from ..algebra.transfer import (block_diag_prolongation, build_ptap_schedule,
                                 mask_prolongation, op_pair_from_scipy)
 from ..assembly.engine import Assembler, Unknown
@@ -28,7 +33,8 @@ from .solution import DIRICHLET, MultiLevelSolution
 
 # every CUDA kernel wrapper of the port, by kernel name; each counts its
 # own launches (``fn.launches``)
-KERNELS = {"bell_spmv": spmv_bell_cuda, "patch_stencil": spmv_patch_cuda}
+KERNELS = {"bell_spmv": spmv_bell_cuda, "patch_stencil": spmv_patch_cuda,
+           "dia_spmv": spmv_dia_cuda, "stencil_spmv": spmv_stencil_cuda}
 
 
 def launch_counts() -> Dict[str, int]:
@@ -43,7 +49,10 @@ class SolverConfig:
     atol: float = 1e-50
     restart: int = 30
     max_outer: int = 20             # GMRES restarts / CG maxiter scale
-    smoother: str = "chebyshev"     # "chebyshev" | "jacobi" | "vanka"
+    # "chebyshev" | "jacobi" | "vanka" | "vanka_gmres" (the block sweep
+    # wrapped in krylov_m FGMRES iterations per level; a nonlinear
+    # preconditioner, so the outer iteration becomes FGMRES)
+    smoother: str = "chebyshev"
     n_pre: int = 2
     n_post: int = 2
     cheb_degree: int = 3
@@ -52,14 +61,24 @@ class SolverConfig:
     # multiplicative (coloured sweeps, one residual refresh per colour) vs
     # additive (one batched sweep with overlap averaging, omega ~0.5)
     vanka_multiplicative: bool = True
+    krylov_m: int = 5               # inner iterations of "vanka_gmres"
     mg_type: str = "V"              # "V" | "F" (F = coarse-to-fine ratchet)
+    # cycle shape of ONE preconditioner application: "V" | "W" | "F"
+    # (full MG: coarse solve first, then ascend with a V-cycle per level) |
+    # "K" (Krylov-accelerated; forces the FGMRES outer) | "ADDITIVE" |
+    # "KASKADE"
+    mg_cycle: str = "V"
     use_mg: bool = True
     # "assembled" = ELL data + PtAP Galerkin chain; "bell" = the same
     # operators, with every Krylov/smoother matvec on a level of at least
     # 2048 rows on the blocked-ELL slab (algebra/bell.py); "patch" = every
     # refined level of a PatchedMultiLevelMesh assembles straight into a
     # patch-lattice stencil (algebra/patchstencil.py, kernel B2), the coarse
-    # level stays ELL (needs coarse_op="rediscretize")
+    # level stays ELL (needs coarse_op="rediscretize"); "matrix_free" = the
+    # finest level's J.v is the linearised residual (no fine matrix data),
+    # its smoother Chebyshev/Jacobi on a scatter-assembled diagonal, the
+    # first coarse level re-assembled on its own mesh at the restricted
+    # state, deeper levels Galerkin
     operator: str = "assembled"
     # coarse V-cycle operators: "galerkin" = PtAP chain from the fine
     # Jacobian; "rediscretize" = each coarse level re-assembled on its own
@@ -133,9 +152,8 @@ class System:
         ``device`` (solve precision ``dtype``: float64 on the host, float32
         on the card by default)."""
         cfg = self.config
-        if cfg.operator not in ("assembled", "bell", "patch"):
-            raise NotImplementedError(f"operator {cfg.operator!r} is not "
-                                      "ported")
+        if cfg.operator not in ("assembled", "bell", "patch", "matrix_free"):
+            raise ValueError(f"operator {cfg.operator!r}")
         if cfg.coarse_op not in ("galerkin", "rediscretize"):
             raise ValueError(f"coarse_op {cfg.coarse_op!r}")
         rediscretize = cfg.coarse_op == "rediscretize"
@@ -151,7 +169,7 @@ class System:
         elif rediscretize:
             raise NotImplementedError("coarse_op='rediscretize' is ported "
                                       "for operator='patch' only")
-        if cfg.interleave_dofs and cfg.operator == "patch":
+        if cfg.interleave_dofs and cfg.operator in ("patch", "matrix_free"):
             raise ValueError("interleave_dofs needs assembled/bell "
                              "operators")
         self.device = resolve_device(device)
@@ -245,7 +263,7 @@ class System:
             "system": self.name,
             "outer": cfg.outer, "operator": cfg.operator,
             "smoother": cfg.smoother, "mg_type": cfg.mg_type,
-            "n_pre": cfg.n_pre,
+            "mg_cycle": cfg.mg_cycle, "n_pre": cfg.n_pre,
             "n_post": cfg.n_post, "rtol": cfg.rtol,
             "restart": cfg.restart, "max_outer": cfg.max_outer,
             "interleave_dofs": cfg.interleave_dofs,
@@ -381,8 +399,18 @@ class System:
         coarse_assemble = [self.assemblers[l].make_assemble_fn(
             pass_tables=True) for l in range(level)] if rediscretize else None
 
+        # the coarsest level of an MG drive gets a direct dense solve
+        coarse_direct = (not transfers and cfg.use_mg
+                         and a.n_dofs <= cfg.coarse_direct_max_dofs
+                         and n_levels > 1)
+
+        if cfg.operator == "matrix_free" and not coarse_direct:
+            step = self._matrix_free_step(level, a, transfers)
+            self._step_fns[level] = step
+            return step
+
         vblocks = None
-        if cfg.smoother == "vanka":
+        if cfg.smoother in ("vanka", "vanka_gmres"):
             from ..algebra.vanka import build_element_blocks
             if transfers:
                 vblocks = [None if (l == 0 and coarse_lu) else
@@ -395,11 +423,6 @@ class System:
             else:
                 vblocks = [build_element_blocks(a, cfg.vanka_block_elems,
                                                 device=self.device)]
-
-        # the coarsest level of an MG drive gets a direct dense solve
-        coarse_direct = (not transfers and cfg.use_mg
-                         and a.n_dofs <= cfg.coarse_direct_max_dofs
-                         and n_levels > 1)
 
         bell_fine = bell_coarse = None
         if cfg.operator == "bell" and not coarse_direct:
@@ -439,19 +462,20 @@ class System:
                     ops, [(t[0], t[1]) for t in transfers],
                     smoother=cfg.smoother, n_pre=cfg.n_pre,
                     n_post=cfg.n_post, cheb_degree=cfg.cheb_degree)
-                M = h.as_preconditioner()
+                M = h.as_preconditioner(cfg.mg_cycle)
             elif transfers:
                 h = build_hierarchy(A, transfers, smoother=cfg.smoother,
                                     n_pre=cfg.n_pre, n_post=cfg.n_post,
                                     cheb_degree=cfg.cheb_degree,
                                     dir_masks=dmasks, vanka_blocks=vblocks,
                                     vanka_omega=cfg.vanka_omega,
+                                    krylov_m=cfg.krylov_m,
                                     vanka_multiplicative=cfg.vanka_multiplicative,
                                     coarse_dense_max=cfg.coarse_dense_max_dofs,
                                     bell_plans=bell_coarse,
                                     device=self.device)
-                M = h.as_preconditioner()
-            elif cfg.smoother == "vanka":
+                M = h.as_preconditioner(cfg.mg_cycle)
+            elif cfg.smoother in ("vanka", "vanka_gmres"):
                 from ..algebra.vanka import vanka_smoother
                 sm = vanka_smoother(A, vblocks[0], omega=cfg.vanka_omega)
                 M = lambda r: sm(torch.zeros_like(r), r)
@@ -459,18 +483,87 @@ class System:
                 d = A.diagonal()
                 dsafe = torch.where(d.abs() < 1e-30, 1.0, d)
                 M = lambda r: r / dsafe
-            if cfg.outer == "cg":
-                delta, info = cg(A.matvec, -R, M=M, tol=cfg.rtol,
-                                 atol=cfg.atol,
-                                 maxiter=cfg.max_outer * cfg.restart)
-            else:
-                delta, info = gmres(A.matvec, -R, M=M, tol=cfg.rtol,
-                                    atol=cfg.atol, restart=cfg.restart,
-                                    max_restarts=cfg.max_outer)
+            delta, info = self._outer_solve(A.matvec, -R, M)
             return StepOut(u + delta, delta, info.residual, info.iters,
                            res_norm, info.converged, info.target)
 
         self._step_fns[level] = step
+        return step
+
+    def _outer_solve(self, A: Callable, b: torch.Tensor, M: Callable):
+        """The configured outer Krylov solve of ``A x = b``.  An
+        inner-Krylov smoother ("vanka_gmres") or a K-cycle makes ``M`` a
+        NONLINEAR preconditioner, so the outer iteration is then flexible
+        (right-preconditioned FGMRES, Saad 1993)."""
+        cfg = self.config
+        if cfg.outer == "cg":
+            return cg(A, b, M=M, tol=cfg.rtol, atol=cfg.atol,
+                      maxiter=cfg.max_outer * cfg.restart)
+        flexible = (cfg.smoother == "vanka_gmres"
+                    or cfg.mg_cycle.upper() == "K")
+        return (fgmres if flexible else gmres)(
+            A, b, M=M, tol=cfg.rtol, atol=cfg.atol, restart=cfg.restart,
+            max_restarts=cfg.max_outer)
+
+    def _matrix_free_step(self, level: int, a, transfers) -> Callable:
+        """Matrix-free solve step: the fine operator is the linearised
+        residual (``Assembler.make_linearized_fn``) with the Dirichlet rows
+        kept as identity — no fine-level matrix data is ever built.  MG
+        coarse side: the level below is re-assembled on its own mesh at the
+        averaged-restricted state u_c = (P^T u) / (P^T 1); deeper levels
+        Galerkin-coarsen from it."""
+        cfg = self.config
+        linearize = a.make_linearized_fn()
+        diag_fn = a.make_diag_fn()
+        m_f = torch.as_tensor(a.dirichlet_mask, device=self.device)
+        self._route_note(n_rows=a.n_dofs, path="matrix_free")
+        if transfers:
+            sub_tr = self._transfers_for(level - 1)
+            fine_pr = transfers[level - 1][:2]
+            a_c = self.assemblers[level - 1]
+            assemble_c = a_c.make_assemble_fn(pass_tables=True)
+            Rsol, winv = self._state_restriction(self._prolongation(level - 1))
+            sub_masks = [torch.as_tensor(m, device=self.device)
+                         for m in self.masks[:level - 1]]
+            # Vanka on the assembled sub-levels (the LU-solved coarsest
+            # one excepted); the fine level has no block slots
+            vblocks = None
+            if cfg.smoother == "vanka":
+                from ..algebra.vanka import build_element_blocks
+                vblocks = [None if l == 0 else build_element_blocks(
+                    self.assemblers[l], cfg.vanka_block_elems,
+                    pattern=(sub_tr[l][2].coarse_pattern
+                             if l < len(sub_tr) else None),
+                    device=self.device) for l in range(level)]
+
+        def step(u, tables=None, aux_scalars=None):
+            tables = a.device_tables_cached() if tables is None else tables
+            u = u.to(device=self.device, dtype=self.dtype)
+            R, jv = linearize(u, tables, aux_scalars)
+            res_norm = float(torch.linalg.norm(R))
+
+            def Amv(v):
+                return torch.where(m_f, v, jv(torch.where(m_f, 0.0, v)))
+
+            diag = diag_fn(u, tables, aux_scalars)
+            if transfers:
+                t_c = a_c.device_tables_cached()
+                _, data_c = assemble_c((Rsol @ u) * winv, t_c, aux_scalars)
+                h = build_hierarchy_matfree(
+                    Amv, diag, a_c.op_with(data_c, t_c.get("ell_cols")),
+                    list(sub_tr) + [fine_pr], smoother=cfg.smoother,
+                    n_pre=cfg.n_pre, n_post=cfg.n_post,
+                    cheb_degree=cfg.cheb_degree, dir_masks=sub_masks,
+                    vanka_blocks=vblocks, vanka_omega=cfg.vanka_omega,
+                    device=self.device)
+                M = h.as_preconditioner(cfg.mg_cycle)
+            else:
+                dsafe = torch.where(diag.abs() < 1e-30, 1.0, diag)
+                M = lambda r: r / dsafe
+            delta, info = self._outer_solve(Amv, -R, M)
+            return StepOut(u + delta, delta, info.residual, info.iters,
+                           res_norm, info.converged, info.target)
+
         return step
 
     # ---- norms ---------------------------------------------------------

@@ -5,6 +5,7 @@ entry points run on the card unless the caller asks for the host: without
 CUDA they raise instead of falling back.
 """
 import ast
+import dataclasses
 import os
 import pkgutil
 import subprocess
@@ -67,6 +68,7 @@ def no_cuda(monkeypatch):
 
 def test_entry_points_raise_without_cuda(no_cuda):
     from femus_tpu_torch.algebra.bell import build_bell_plan, relayout_ell
+    from femus_tpu_torch.algebra.condest import sigma_max, sigma_min
     from femus_tpu_torch.algebra.mg import build_hierarchy
     from femus_tpu_torch.assembly.engine import Assembler, Unknown
     from femus_tpu_torch.mesh.generation import unit_box
@@ -84,6 +86,11 @@ def test_entry_points_raise_without_cuda(no_cuda):
                      torch.zeros(a.pattern.cols.shape, dtype=torch.float64))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         build_hierarchy(None, [])
+    for est in (sigma_max, sigma_min):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            est(lambda x: x, lambda x: x, 8)
+        assert float(est(lambda x: 2 * x, lambda x: 2 * x, 8,
+                         device="cpu")) == pytest.approx(2.0, rel=1e-8)
     ml_mesh = MultiLevelMesh(unit_box((2, 2)), 2)
     ml_sol = MultiLevelSolution(ml_mesh)
     ml_sol.add_solution("u")
@@ -122,6 +129,13 @@ def test_cuda_matvec_never_falls_back_to_the_host(monkeypatch):
     ins = pop._inputs(torch.ones(tab.n, dtype=torch.float64))
     with pytest.raises((ValueError, RuntimeError)):
         ps.spmv_patch_cuda(pop.wt, *ins)
+    from femus_tpu_torch.algebra import dia, stencil
+    d = dia.DiaOp(torch.ones(3, 12, dtype=torch.float64), (-4, 0, 4), 12)
+    st = stencil.build_stencil(d, 4)
+    with pytest.raises(ValueError):
+        dia.spmv_dia_cuda(d, torch.ones(12, dtype=torch.float64))
+    with pytest.raises(ValueError):
+        stencil.spmv_stencil_cuda(st, torch.ones(12, dtype=torch.float64))
     # a CUDA-routed patch matvec whose kernel cannot launch raises instead
     # of returning the plain result
     plain = []
@@ -132,6 +146,16 @@ def test_cuda_matvec_never_falls_back_to_the_host(monkeypatch):
     with pytest.raises(RuntimeError, match="nvcc|CUDA"):
         ps._patch_chunk(*(t.to("meta") for t in (pop.wt,) + ins))
     assert not plain and ps.spmv_patch_cuda.launches == n0
+    # the same for the DIA and lattice-stencil matvecs (kernels B4 and B3)
+    monkeypatch.setattr(dia, "_matvec_plain", lambda *a: plain.append(1))
+    monkeypatch.setattr(stencil, "_matvec_plain",
+                        lambda *a: plain.append(1))
+    for op, fn in ((d, dia.spmv_dia_cuda), (st, stencil.spmv_stencil_cuda)):
+        n0 = fn.launches
+        with pytest.raises(RuntimeError, match="nvcc|CUDA"):
+            type(op)(op.data.to("meta"), *dataclasses.astuple(op)[1:]) \
+                .matvec(torch.ones(12, dtype=torch.float64, device="meta"))
+        assert not plain and fn.launches == n0
 
 
 def test_chip_smoke_fails_without_a_card():

@@ -12,10 +12,14 @@ import pytest
 import torch
 
 from femus_tpu_torch.algebra import bell
+from femus_tpu_torch.algebra import dia
 from femus_tpu_torch.algebra import patchstencil as ps
+from femus_tpu_torch.algebra import stencil
 from femus_tpu_torch.assembly.bc import generate_bdc
 from femus_tpu_torch.assembly.engine import Assembler, Unknown
 from femus_tpu_torch.assembly.forms import elasticity, navier_stokes, poisson
+from femus_tpu_torch.assembly.lattice import (build_lattice_plan,
+                                              make_lattice_assemble_fn)
 from femus_tpu_torch.mesh.generation import unit_box
 from femus_tpu_torch.mesh.patches import refine_patched
 
@@ -151,6 +155,114 @@ def test_patch_kernel_rejects_bad_input(cuda):
         ps.spmv_patch_cuda(op.wt, xi[:-1], ln, cv)
     with pytest.raises(ValueError):
         ps.spmv_patch_cuda(op.wt, xi.cpu(), ln, cv)
+
+
+def _dia_case(case: str, dtype, device):
+    """A DIA operator: "assembled" = Q2 Poisson on unit_box((6, 6)) through
+    the ELL -> DIA relayout; the others hold seeded random data, where the
+    flattened form wraps across lattice rows: "random" (n = 4099, not a
+    multiple of the block size, offsets of both signs), "single" (K = 1,
+    one negative offset), "wide" (offsets beyond n on both sides)."""
+    if case == "assembled":
+        asm = Assembler(unit_box((6, 6)), [Unknown("u")], device="cpu")
+        asm.set_volume_form(poisson("u"))
+        generate_bdc(asm, lambda var, x, grp, t: (True, 0.0))
+        _, data = asm.make_assemble_fn()(torch.zeros(asm.n_dofs,
+                                                     dtype=torch.float64))
+        op = dia.build_dia_plan(asm.pattern).apply(data, asm.n_dofs)
+        return dia.DiaOp(op.data.to(device, dtype).contiguous(), op.offsets,
+                         op.n)
+    n, offs = {"random": (4099, (-33, -1, 0, 1, 33)),
+               "single": (1000, (-7,)),
+               "wide": (300, (-400, -299, 0, 5, 299, 400))}[case]
+    data = np.random.default_rng(3).standard_normal((len(offs), n))
+    return dia.DiaOp(torch.as_tensor(data, dtype=dtype, device=device),
+                     offs, n)
+
+
+# same float32/float64 budgets as B1: the kernel fuses multiply-adds and
+# skips out-of-range terms, the plain version pads x with zeros
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-5),
+                                        (torch.float64, 1e-12)])
+@pytest.mark.parametrize("case", ["assembled", "random", "single", "wide"])
+def test_dia_kernel_matches_plain(cuda, dtype, rtol, case):
+    op = _dia_case(case, dtype, cuda)
+    x = torch.as_tensor(np.random.default_rng(1).standard_normal(op.n),
+                        dtype=dtype, device=cuda)
+    n0 = dia.spmv_dia_cuda.launches
+    y = op.matvec(x)
+    torch.cuda.synchronize()
+    assert dia.spmv_dia_cuda.launches == n0 + 1
+    ref = dia._matvec_plain(op.data, op.offsets, x)
+    scale = dia._matvec_plain(op.data.abs(), op.offsets, x.abs()).max()
+    assert y.dtype == dtype and y.shape == (op.n,)
+    assert float((y - ref).abs().max()) <= rtol * float(scale)
+    assert torch.equal(op.matvec(x), y)       # no atomics: bit-identical
+
+
+def _stencil_case(case: str, dtype, device):
+    """A lattice-stencil operator: "assembled" = Q2 Poisson on
+    unit_box((6, 6)) from the scatter-free lattice assembly; "random" =
+    seeded random data on a 37 x 53 lattice with offsets reaching +-8
+    (odd sizes; x must read zero wherever i+di or j+dj leaves the
+    lattice); "single" = one offset on a lattice narrower than a warp."""
+    if case == "assembled":
+        asm = Assembler(unit_box((6, 6)), [Unknown("u")], device="cpu")
+        asm.set_volume_form(poisson("u"))
+        generate_bdc(asm, lambda var, x, grp, t: (True, 0.0))
+        plan = build_lattice_plan(asm)
+        _, op = make_lattice_assemble_fn(asm, plan)(
+            torch.zeros(asm.n_dofs, dtype=torch.float64),
+            asm.device_tables_cached())
+        return stencil.StencilOp(op.data.to(device, dtype).contiguous(),
+                                 op.offsets, op.grid)
+    grid, offs = {"random": ((37, 53), ((-8, -8), (-8, 8), (-3, 0), (0, -8),
+                                        (0, 0), (0, 1), (2, -5), (8, -8),
+                                        (8, 8))),
+                  "single": ((9, 5), ((1, -2),))}[case]
+    data = np.random.default_rng(4).standard_normal((len(offs),) + grid)
+    return stencil.StencilOp(torch.as_tensor(data, dtype=dtype,
+                                             device=device), offs, grid)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-5),
+                                        (torch.float64, 1e-12)])
+@pytest.mark.parametrize("case", ["assembled", "random", "single"])
+def test_stencil_kernel_matches_plain(cuda, dtype, rtol, case):
+    op = _stencil_case(case, dtype, cuda)
+    x = torch.as_tensor(np.random.default_rng(1).standard_normal(op.n_rows),
+                        dtype=dtype, device=cuda)
+    n0 = stencil.spmv_stencil_cuda.launches
+    y = op.matvec(x)
+    torch.cuda.synchronize()
+    assert stencil.spmv_stencil_cuda.launches == n0 + 1
+    ref = stencil._matvec_plain(op.data, op.offsets, op.grid, x)
+    scale = stencil._matvec_plain(op.data.abs(), op.offsets, op.grid,
+                                  x.abs()).max()
+    assert y.dtype == dtype and y.shape == (op.n_rows,)
+    assert float((y - ref).abs().max()) <= rtol * float(scale)
+    assert torch.equal(op.matvec(x), y)       # no atomics: bit-identical
+
+
+@pytest.mark.cuda
+def test_lattice_kernels_reject_bad_input(cuda):
+    d = _dia_case("random", torch.float32, cuda)
+    with pytest.raises(TypeError):
+        d.matvec(torch.ones(d.n, dtype=torch.float64, device=cuda))
+    with pytest.raises(ValueError):
+        d.matvec(torch.ones(d.n + 1, device=cuda))
+    with pytest.raises(ValueError):
+        dia.spmv_dia_cuda(d, torch.ones(d.n))
+    s = _stencil_case("random", torch.float32, cuda)
+    with pytest.raises(TypeError):
+        s.matvec(torch.ones(s.n_rows, dtype=torch.float64, device=cuda))
+    with pytest.raises(ValueError):
+        s.matvec(torch.ones(s.n_rows - 1, device=cuda))
+    far = stencil.StencilOp(s.data[:1].contiguous(), ((9, 0),), s.grid)
+    with pytest.raises(ValueError):
+        far.matvec(torch.ones(s.n_rows, device=cuda))
 
 
 @pytest.mark.parametrize("H,P", [(3, 1), (17, 15), (33, 1024)])

@@ -357,8 +357,9 @@ def test_patch_system_matches_jax(patch_solves):
 def test_patch_step_reports_kernel_launches_and_routing(patch_solves):
     s, ml_mesh, _, _, info = patch_solves["port"]
     # every kernel has its own count; on the host both stay 0
-    assert info["kernel_launches"] == {"bell_spmv": 0, "patch_stencil": 0}
-    assert set(tsys.launch_counts()) == {"bell_spmv", "patch_stencil"}
+    assert info["kernel_launches"] == dict.fromkeys(tsys.KERNELS, 0)
+    assert set(tsys.launch_counts()) == {"bell_spmv", "patch_stencil",
+                                         "dia_spmv", "stencil_spmv"}
     routing = s.solver_info()["routing"]
     sizes = [a.n_dofs for a in s.assemblers]
     assert {"n_rows": sizes[0], "path": "lu",
