@@ -2,9 +2,9 @@
 
 A port of the ``femus_tpu`` package to PyTorch for NVIDIA Hopper cards.
 Host-side set-up (meshes, dof maps, sparsity patterns, transfer schedules,
-blocked-ELL plans) is plain numpy/scipy; device work is torch tensors on an
-explicit ``device``; the blocked-ELL SpMV runs as a hand-written CUDA kernel
-(``algebra/csrc/bell_spmv.cu``).
+blocked- and sliced-ELL plans, patch routing tables) is plain numpy/scipy;
+device work is torch tensors on an explicit ``device``; the sparse matvecs
+run as hand-written CUDA kernels (``algebra/csrc/*.cu``).
 
 Precision policy, set once here: float32 matrix products run in full
 float32 (no TF32) everywhere.  Together with the per-element coordinate

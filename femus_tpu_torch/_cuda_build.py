@@ -22,7 +22,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # every kernel source of the package, relative to the package directory
-KERNEL_SOURCES = ["algebra/csrc/bell_spmv.cu",
+KERNEL_SOURCES = ["algebra/csrc/sell_spmv.cu",
                   "algebra/csrc/patch_stencil.cu",
                   "algebra/csrc/dia_spmv.cu",
                   "algebra/csrc/stencil_spmv.cu"]

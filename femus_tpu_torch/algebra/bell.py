@@ -1,23 +1,31 @@
-"""Blocked-ELL (BELL) sparse operator — the fast matvec for general
-unstructured operators.
+"""The general sparse matvec of the BELL frame: blocked-ELL plans on the
+host, a sliced-ELL (SELL-C-sigma) operator on the device.
 
-Layout (host plan, identical to ``femus_tpu``'s ``BellPlan``):
+Two layouts live here.
 
-- rows are cut into tiles of ``T`` rows, columns into narrow ``C``-column
-  blocks (default C=32: FEM rows cluster in ~30-column neighbour groups);
-  ``pack = 128 // C`` blocks share one 128-lane physical slab row, so the
-  slab is ``(slab_rows, T, 128)``;
-- each tile's block run is padded to a multiple of ``pack``, so one slab
-  row never mixes tiles;
-- dofs may be reordered by reverse Cuthill-McKee (``perm``) so each row's
-  neighbours land in a narrow index range — dense blocks.
+- :class:`BellPlan` (host, identical to ``femus_tpu``'s ``BellPlan``) is the
+  blocked-ELL layout of the JAX package: rows cut into tiles of ``T`` rows,
+  columns into ``C``-column blocks packed into 128-lane slab rows.  The
+  port keeps it for what the solver reads from it: the frame (``perm`` /
+  ``iperm``, identity or reverse Cuthill-McKee) and the slab-density figure
+  that decides when an identity frame is rebuilt with RCM.  The port stores
+  no slab.
+- :class:`SellPlan` is the layout the card streams: rows of the frame are
+  cut into slices of ``SELL_C`` = 32 rows (one warp); inside a window of
+  ``sigma`` rows they are sorted by length, so a slice pads only to its own
+  longest row (rounded up to ``SELL_V`` = 4 columns); values and int32
+  columns (frame numbering) are stored slice by slice in groups of 4
+  columns, lane-major inside a group, so lane r of a warp reads row r with
+  one 16-byte load and a warp reads 512 contiguous bytes.  The row sort is
+  a permutation inside the plan (``row_order``): the matvec writes ``y``
+  back in frame order.
 
-Assembled ELL data re-lays out into the slab with one scatter per assembly
+Assembled ELL data re-lays out with one gather through ``SellPlan.src``
 (:func:`relayout_ell`).  The matvec ``y_frame = A_frame x_frame`` runs on a
-CUDA tensor as the hand-written kernel ``csrc/bell_spmv.cu`` (one warp per
-row tile, x gathered directly — exact, no window or size cap) and on a CPU
-tensor as :func:`_matvec_plain_frame` (gather, multiply, lane sum,
-``index_add_`` over the per-row tile ids).
+CUDA tensor as the hand-written kernel ``csrc/sell_spmv.cu`` (one warp per
+slice, lane = row, a running sum per lane) and on a CPU tensor as
+:func:`_matvec_plain_frame` (gather, multiply, row sums over the same
+arrays).
 """
 from __future__ import annotations
 
@@ -37,6 +45,15 @@ from .sparse import EllPattern
 # plans of both packages are identical arrays)
 _CHUNK = 256
 
+# the sliced-ELL layout of the card: rows per slice (one warp), slice
+# columns per lane and load (16 bytes of float32 or int32), and the window
+# of rows inside which rows are sorted by length.  sigma is fixed from the
+# measured fill (stored slots / nonzeros) and kernel time of the 128x128
+# cavity Jacobian (tools/torch_sell_sigma.py)
+SELL_C = 32
+SELL_V = 4
+SELL_SIGMA = 512
+
 
 def rcm_permutation(pattern: EllPattern) -> np.ndarray:
     """Reverse Cuthill-McKee ordering of the symmetrized pattern graph:
@@ -55,9 +72,9 @@ def rcm_permutation(pattern: EllPattern) -> np.ndarray:
 @dataclasses.dataclass(frozen=True, eq=False)
 class BellPlan:
     """Host-side BELL layout.  The fields up to ``tile_widths`` equal
-    ``femus_tpu.algebra.bell.BellPlan``'s; ``tile_row_ptr``/``tile_rows``
-    (the physical slab rows of each row tile, CSR-style) are the CUDA
-    kernel's walk order."""
+    ``femus_tpu.algebra.bell.BellPlan``'s; ``pattern`` is the operator
+    pattern the plan was built from (the sliced-ELL plan of the same frame
+    is built from it on first use, :meth:`sell`)."""
 
     n: int                    # logical dof count (= pattern.n_rows)
     tile: int                 # rows per block (T)
@@ -79,8 +96,7 @@ class BellPlan:
     twin: int                 # tile-window width (8-padded)
     chunk: int                # slab rows per chunk
     tile_widths: tuple        # per-chunk tile-range widths
-    tile_row_ptr: np.ndarray  # (n_tiles + 1,) range into tile_rows
-    tile_rows: np.ndarray     # (real slab rows,) physical rows, by tile
+    pattern: EllPattern       # the operator pattern (square)
 
     @property
     def identity(self) -> bool:
@@ -105,19 +121,17 @@ class BellPlan:
         """Slab bytes / ideal ELL bytes (value+index) — the traffic price."""
         return self.slab_bytes() / (len(self.dest) * 8)
 
-    def to_device(self, device) -> "BellDev":
-        """Device view of the plan (cached per device)."""
-        device = resolve_device(device)
-        cache = self.__dict__.setdefault("_dev", {})
-        if device not in cache:
-            cache[device] = BellDev.from_arrays(
-                device, n=self.n, tile=self.tile, n_tiles=self.n_tiles,
-                n_xblocks=self.n_xblocks, col_block=self.col_block,
-                perm=None if self.identity else self.perm,
-                block_ids=self.block_ids, tile_ids=self.tile_ids,
-                dest=self.dest, diag_src=self.diag_src,
-                tile_row_ptr=self.tile_row_ptr, tile_rows=self.tile_rows)
-        return cache[device]
+    def sell(self, sigma: int = SELL_SIGMA) -> "SellPlan":
+        """The sliced-ELL plan of this pattern in this plan's frame
+        (cached per sigma)."""
+        cache = self.__dict__.setdefault("_sell", {})
+        if sigma not in cache:
+            cache[sigma] = build_sell_plan(self.pattern, self.perm, sigma)
+        return cache[sigma]
+
+    def to_device(self, device) -> "SellDev":
+        """Device view of the sliced-ELL plan (cached per device)."""
+        return self.sell().to_device(device)
 
 
 def build_bell_plan(pattern: EllPattern, tile: int = 16,
@@ -255,75 +269,162 @@ def build_bell_plan(pattern: EllPattern, tile: int = 16,
     diag = diag[iperm]               # new-row order -> original row order
     tile_start = np.concatenate([[0], np.cumsum(
         np.bincount(tid0, minlength=n_tiles))]).astype(np.int64)
-    # kernel walk order: the real slab rows of each tile (padded rows are
-    # sorted by tile, so pr_of lists them tile by tile)
-    tile_row_ptr = np.searchsorted(rowtile, np.arange(n_tiles + 1)
-                                   ).astype(np.int32)
-    tile_rows = pr_of.astype(np.int32)
     return BellPlan(n, T, n_tiles, n_xblocks, C, perm, iperm,
                     bid_per_block, tile_start, dest, diag, nb, win_start,
                     win, tid_by_row, twin_start, twin, chunk, tile_widths,
-                    tile_row_ptr, tile_rows)
+                    pattern)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class SellPlan:
+    """Host-side sliced-ELL (SELL-C-sigma) layout of a pattern in a frame.
+
+    Slot of column k of the row stored at lane r of slice s:
+    ``(slice_ptr[s] + k // V) * C * V + r * V + k % V``."""
+
+    n: int                    # logical dof count (= pattern.n_rows)
+    nnz: int                  # pattern nonzeros
+    sigma: int                # sorting window (rows)
+    n_slices: int
+    perm: np.ndarray          # (n,) frame -> original dof index
+    iperm: np.ndarray         # (n,) original -> frame dof index
+    slice_ptr: np.ndarray     # (n_slices + 1,) int32, in groups of C*V slots
+    cols: np.ndarray          # (total,) int32 frame column per slot
+    src: np.ndarray           # (total + 1,) ELL-flat slot per stored slot;
+                              #   padding and the last entry point one past
+                              #   the ELL data, where a zero is read
+    row_order: np.ndarray     # (n_slices * C,) int32 frame row stored at
+                              #   each (slice, lane); -1 beyond the last row
+    diag_slot: np.ndarray     # (n,) slot of each ORIGINAL row's diagonal
+                              #   (``total``, the zero, for rows without one)
+
+    @property
+    def total(self) -> int:
+        """Stored slots."""
+        return int(self.cols.shape[0])
+
+    @property
+    def fill(self) -> float:
+        """Stored slots / nonzeros (1.0 = no padding)."""
+        return self.total / max(self.nnz, 1)
+
+    @property
+    def identity(self) -> bool:
+        return bool(np.array_equal(self.perm, np.arange(self.n)))
+
+    def to_device(self, device) -> "SellDev":
+        """Device view of the plan (cached per device)."""
+        device = resolve_device(device)
+        cache = self.__dict__.setdefault("_dev", {})
+        if device not in cache:
+            def t(a, dt):
+                return torch.as_tensor(np.asarray(a), dtype=dt, device=device)
+
+            ident = self.identity
+            cache[device] = SellDev(
+                t(self.slice_ptr, torch.int32), t(self.cols, torch.int32),
+                t(self.row_order, torch.int32),
+                t(self.src, torch.int32 if self.src[-1] < 2 ** 31
+                  else torch.int64),
+                t(self.diag_slot, torch.int64),
+                None if ident else t(self.perm, torch.int64),
+                None if ident else t(self.iperm, torch.int64),
+                self.n, self.n_slices, self.nnz, self.sigma)
+        return cache[device]
+
+
+def build_sell_plan(pattern: EllPattern, perm=None,
+                    sigma: int = SELL_SIGMA) -> SellPlan:
+    """Sliced-ELL layout of ``pattern`` in the frame ``perm`` (None -> RCM,
+    "identity", or an explicit (n,) ordering, as :func:`build_bell_plan`).
+    Rows are sorted by length (longest first, ties in frame order) inside
+    windows of ``sigma`` frame rows, a multiple of the slice height."""
+    n = pattern.n_rows
+    assert pattern.n_cols == n, "the frame matvec expects a square operator"
+    C, V = SELL_C, SELL_V
+    if sigma % C:
+        raise ValueError(f"sigma {sigma} is no multiple of {C}")
+    if isinstance(perm, str) and perm == "identity":
+        perm = np.arange(n, dtype=np.int64)
+    elif perm is None:
+        perm = rcm_permutation(pattern)
+    perm = np.asarray(perm, dtype=np.int64)
+    iperm = np.empty_like(perm)
+    iperm[perm] = np.arange(n)
+
+    counts = np.diff(pattern.indptr).astype(np.int64)
+    n_slices = -(-n // C)
+    n_pad = n_slices * C
+    lens = np.zeros(n_pad, np.int64)
+    lens[:n] = counts[perm]
+    rows_f = np.arange(n_pad, dtype=np.int64)
+    order = np.lexsort((rows_f, -lens, rows_f // sigma))   # position -> row
+    pos_of = np.empty(n_pad, np.int64)
+    pos_of[order] = rows_f                                 # frame row -> position
+    width = lens[order].reshape(n_slices, C).max(axis=1)
+    groups = -(-width // V)                                # V-column groups
+    slice_ptr = np.concatenate([[0], np.cumsum(groups)])
+    total = int(slice_ptr[-1]) * C * V
+    if total >= 2 ** 31:
+        raise ValueError("sliced-ELL slab beyond 2^31 slots")
+    row_order = np.where(order < n, order, -1).astype(np.int32)
+
+    # padding slots: a zero value times the row's own x entry
+    slot_slice = np.repeat(np.arange(n_slices, dtype=np.int64),
+                           groups * C * V)
+    slot_lane = (np.arange(total, dtype=np.int64) // V) % C
+    cols = np.maximum(row_order[slot_slice * C + slot_lane], 0
+                      ).astype(np.int32)
+    del slot_slice, slot_lane
+    ell_size = n * pattern.width
+    src = np.full(total + 1, ell_size, np.int64)
+    # every nonzero: CSR entry e is column k of its row
+    rows_o = np.repeat(np.arange(n, dtype=np.int64), counts)
+    k = np.arange(pattern.nnz, dtype=np.int64) - np.repeat(
+        pattern.indptr[:-1].astype(np.int64), counts)
+    pos = pos_of[iperm[rows_o]]
+    slot = ((slice_ptr[pos // C] + k // V) * C + pos % C) * V + k % V
+    cols[slot] = iperm[pattern.indices]
+    src[slot] = pattern.csr_to_ell_slots()
+    diag_slot = np.full(n, total, np.int64)
+    on_diag = pattern.indices == rows_o
+    diag_slot[rows_o[on_diag]] = slot[on_diag]
+    return SellPlan(n, int(pattern.nnz), int(sigma), n_slices, perm, iperm,
+                    slice_ptr.astype(np.int32), cols, src, row_order,
+                    diag_slot)
 
 
 @dataclasses.dataclass
-class BellDev:
-    """Device-side BELL plan tensors."""
+class SellDev:
+    """Device-side sliced-ELL plan tensors."""
 
-    block_ids: torch.Tensor      # (slab_rows * pack,) int32
-    tile_ids: torch.Tensor       # (slab_rows,) int64
-    tile_row_ptr: torch.Tensor   # (n_tiles + 1,) int32
-    tile_rows: torch.Tensor      # (real slab rows,) int32
-    relayout_src: torch.Tensor   # ELL flat slots that land in the slab
-    relayout_dst: torch.Tensor   # their slab-flat destinations
-    diag_src: torch.Tensor       # (n,) int64
+    slice_ptr: torch.Tensor      # (n_slices + 1,) int32
+    cols: torch.Tensor           # (total,) int32
+    row_order: torch.Tensor      # (n_slices * C,) int32
+    src: torch.Tensor            # (total + 1,) int32 (int64 past 2^31)
+    diag_slot: torch.Tensor      # (n,) int64
     perm: Optional[torch.Tensor]     # None = identity ordering
     iperm: Optional[torch.Tensor]
     n: int
-    tile: int
-    n_xblocks: int
-    col_block: int
-    n_tiles: int
-
-    @classmethod
-    def from_arrays(cls, device, *, n, tile, n_tiles, n_xblocks, col_block,
-                    perm, block_ids, tile_ids, dest, diag_src,
-                    tile_row_ptr, tile_rows) -> "BellDev":
-        """Upload host plan arrays (``perm`` None = identity ordering)."""
-        def t(a, dt):
-            return torch.as_tensor(np.asarray(a), dtype=dt, device=device)
-
-        sr = len(tile_ids)
-        dest = np.asarray(dest)
-        src = np.flatnonzero(dest < sr * tile * 128)
-        iperm = None
-        if perm is not None:
-            iperm = np.empty(n, np.int64)
-            iperm[np.asarray(perm)] = np.arange(n)
-        return cls(t(block_ids, torch.int32), t(tile_ids, torch.int64),
-                   t(tile_row_ptr, torch.int32), t(tile_rows, torch.int32),
-                   t(src, torch.int64), t(dest[src], torch.int64),
-                   t(diag_src, torch.int64),
-                   None if perm is None else t(perm, torch.int64),
-                   None if iperm is None else t(iperm, torch.int64),
-                   int(n), int(tile), int(n_xblocks), int(col_block),
-                   int(n_tiles))
+    n_slices: int
+    nnz: int
+    sigma: int
 
     @property
-    def pack(self) -> int:
-        return 128 // self.col_block
+    def total(self) -> int:
+        return int(self.cols.shape[0])
 
     @property
-    def slab_rows(self) -> int:
-        return int(self.tile_ids.shape[0])
+    def fill(self) -> float:
+        return self.total / max(self.nnz, 1)
 
 
 @dataclasses.dataclass
 class BellOp:
-    """Device BELL operator (slab + device plan)."""
+    """Device operator of the BELL frame: sliced-ELL values + device plan."""
 
-    blocks: torch.Tensor        # (slab_rows, T, 128)
-    dev: BellDev
+    vals: torch.Tensor          # (total + 1,): the stored slots and a zero
+    dev: SellDev
 
     @property
     def n_rows(self) -> int:
@@ -354,24 +455,30 @@ class BellOp:
         return self.matvec(x)
 
     def diagonal(self) -> torch.Tensor:
-        return self.blocks.reshape(-1)[self.dev.diag_src]
+        return self.vals[self.dev.diag_slot]
 
 
 def _matvec_plain_frame(op: BellOp, xf: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch BELL matvec (frame-resident): one C-wide x gather per
-    block, full-lane row sums (slab rows are single-tile), ``index_add_``
-    over the per-row tile ids.  Accumulates in the promotion of x's dtype
-    and float32 (bf16 slabs multiply into float32)."""
+    """Plain PyTorch sliced-ELL matvec (frame-resident) over the arrays the
+    kernel reads: one x gather per slot, the V products of a (group, lane)
+    summed, groups summed onto their slice (``index_add_`` over the slice
+    id of each group, from ``slice_ptr``), rows written back through
+    ``row_order``.  Accumulates in the promotion of x's dtype and float32
+    (bf16 values multiply into float32)."""
     p = op.dev
-    C, pack, T = p.col_block, p.pack, p.tile
+    C, V = SELL_C, SELL_V
     acc = torch.promote_types(xf.dtype, torch.float32)
-    xp = torch.zeros(p.n_xblocks * C, dtype=xf.dtype, device=xf.device)
-    xp[:p.n] = xf
-    xg = xp.view(p.n_xblocks, C)[p.block_ids].reshape(p.slab_rows, pack * C)
-    rowsum = (op.blocks.to(acc) * xg.to(acc)[:, None, :]).sum(dim=-1)
-    yt = torch.zeros(p.n_tiles, T, dtype=acc, device=xf.device)
-    yt.index_add_(0, p.tile_ids, rowsum)
-    return yt.reshape(-1)[:p.n].to(xf.dtype)
+    prod = op.vals[:p.total].to(acc) * xf.to(acc)[p.cols.long()]
+    ptr = p.slice_ptr.long()
+    group_slice = torch.repeat_interleave(
+        torch.arange(p.n_slices, device=xf.device), ptr[1:] - ptr[:-1])
+    stored = torch.zeros(p.n_slices, C, dtype=acc, device=xf.device)
+    stored.index_add_(0, group_slice, prod.view(-1, C, V).sum(dim=-1))
+    rows = p.row_order.long()
+    real = rows >= 0
+    y = torch.zeros(p.n, dtype=acc, device=xf.device)
+    y[rows[real]] = stored.view(-1)[real]
+    return y.to(xf.dtype)
 
 
 _DTYPE_CODE = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2}
@@ -379,39 +486,34 @@ _DTYPE_CODE = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2}
 
 def spmv_bell_cuda(op: BellOp, xf: torch.Tensor) -> torch.Tensor:
     """y_frame = A_frame x_frame through the CUDA kernel
-    (``csrc/bell_spmv.cu``), launched on the current stream.  Raises on
+    (``csrc/sell_spmv.cu``), launched on the current stream.  Raises on
     anything the kernel does not take; there is no fallback."""
     p = op.dev
-    blocks = op.blocks
-    if not (xf.is_cuda and blocks.is_cuda and xf.device == blocks.device
-            and p.block_ids.device == xf.device):
-        raise ValueError("spmv_bell_cuda: slab, x and plan must share one "
+    vals = op.vals
+    if not (xf.is_cuda and vals.is_cuda and xf.device == vals.device
+            and p.cols.device == xf.device):
+        raise ValueError("spmv_bell_cuda: values, x and plan must share one "
                          "CUDA device")
     if xf.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"spmv_bell_cuda: x dtype {xf.dtype} not supported")
-    if blocks.dtype not in _DTYPE_CODE:
-        raise TypeError(f"spmv_bell_cuda: slab dtype {blocks.dtype} not "
+    if vals.dtype not in _DTYPE_CODE:
+        raise TypeError(f"spmv_bell_cuda: value dtype {vals.dtype} not "
                         "supported")
-    if p.tile not in (8, 16) or p.col_block % 4:
-        raise ValueError("spmv_bell_cuda: needs tile 8 or 16 and a column "
-                         "block that is a multiple of 4")
-    if xf.shape != (p.n,) or blocks.shape != (p.slab_rows, p.tile, 128):
-        raise ValueError(f"spmv_bell_cuda: shapes x {tuple(xf.shape)}, slab "
-                         f"{tuple(blocks.shape)} do not fit the plan")
-    if not (xf.is_contiguous() and blocks.is_contiguous()
-            and blocks.data_ptr() % 16 == 0):
-        raise ValueError("spmv_bell_cuda: x and slab must be contiguous, "
-                         "slab 16-byte aligned")
-    lib = _bell_lib()
+    if xf.shape != (p.n,) or vals.shape != (p.total + 1,):
+        raise ValueError(f"spmv_bell_cuda: shapes x {tuple(xf.shape)}, "
+                         f"values {tuple(vals.shape)} do not fit the plan")
+    if not (xf.is_contiguous() and vals.is_contiguous()
+            and vals.data_ptr() % 16 == 0 and p.cols.data_ptr() % 16 == 0):
+        raise ValueError("spmv_bell_cuda: x and values must be contiguous, "
+                         "values and columns 16-byte aligned")
+    fn = _sell_fn()
     y = torch.empty_like(xf)
     stream = torch.cuda.current_stream(xf.device).cuda_stream
-    rc = lib.bell_spmv(blocks.data_ptr(), _DTYPE_CODE[blocks.dtype],
-                       xf.data_ptr(), y.data_ptr(), _DTYPE_CODE[xf.dtype],
-                       p.block_ids.data_ptr(), p.tile_row_ptr.data_ptr(),
-                       p.tile_rows.data_ptr(), p.n, p.n_tiles, p.tile,
-                       p.col_block, stream)
+    rc = fn(vals.data_ptr(), _DTYPE_CODE[vals.dtype], p.cols.data_ptr(),
+            p.slice_ptr.data_ptr(), p.row_order.data_ptr(), xf.data_ptr(),
+            y.data_ptr(), _DTYPE_CODE[xf.dtype], p.n_slices, stream)
     if rc != 0:
-        raise RuntimeError(f"bell_spmv kernel launch failed: CUDA error {rc}")
+        raise RuntimeError(f"sell_spmv kernel launch failed: CUDA error {rc}")
     spmv_bell_cuda.launches += 1
     return y
 
@@ -419,42 +521,44 @@ def spmv_bell_cuda(op: BellOp, xf: torch.Tensor) -> torch.Tensor:
 spmv_bell_cuda.launches = 0
 
 
-def _bell_lib():
-    lib = load_library("algebra/csrc/bell_spmv.cu")
-    fn = lib.bell_spmv
-    if fn.argtypes is None:
+_fn = []
+
+
+def _sell_fn():
+    """The kernel's C entry point (the library is built at first use)."""
+    if not _fn:
+        fn = load_library("algebra/csrc/sell_spmv.cu").sell_spmv
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp, ci, vp, vp, ci, vp, vp, vp, ctypes.c_longlong,
-                       ci, ci, ci, vp]
+        fn.argtypes = [vp, ci, vp, vp, vp, vp, vp, ci, ci, vp]
         fn.restype = ci
-    return lib
+        _fn.append(fn)
+    return _fn[0]
 
 
 def relayout_ell(plan, ell_data: torch.Tensor, dtype=None,
                  device="cuda") -> BellOp:
-    """Scatter assembled ELL data into the BELL slab on ``device`` (one
-    scatter of the in-slab ELL slots; padding slots are dropped).
-    ``plan``: a host :class:`BellPlan` or a :class:`BellDev`.  ``dtype``:
-    slab storage type (float32, float64 or bfloat16); x and the
-    accumulation stay in the solve precision."""
+    """Lay assembled ELL data out as sliced-ELL values on ``device``: one
+    gather through the plan's source index (padding slots read the zero
+    appended to the data).  ``plan``: a host :class:`BellPlan` or
+    :class:`SellPlan`, or a :class:`SellDev`.  ``dtype``: value storage
+    type (float32, float64 or bfloat16); x and the accumulation stay in
+    the solve precision."""
     device = resolve_device(device)
-    dev = plan.to_device(device) if isinstance(plan, BellPlan) else plan
+    dev = plan if isinstance(plan, SellDev) else plan.to_device(device)
     dt = ell_data.dtype if dtype is None else dtype
-    slab = torch.zeros(dev.slab_rows * dev.tile * 128, dtype=dt,
-                       device=device)
-    src = ell_data.to(device).reshape(-1)[dev.relayout_src]
-    slab[dev.relayout_dst] = src.to(dt)
-    return BellOp(slab.view(dev.slab_rows, dev.tile, 128), dev)
-
+    flat = ell_data.to(device).reshape(-1)
+    vals = torch.cat([flat, flat.new_zeros(1)])[dev.src]
+    return BellOp(vals.to(dt), dev)
 
 @dataclasses.dataclass
 class BellBackedOp:
-    """ELL operator whose matvec rides the BELL slab.
+    """ELL operator whose matvec rides the sliced-ELL operator of the BELL
+    frame.
 
     Quacks like :class:`~femus_tpu_torch.algebra.sparse.SparseOp`: ``data``
     / ``cols`` / ``rmatvec`` stay ELL (PtAP schedules, Vanka blocks and
     Dirichlet fix-ups read assembled ELL slots), ``matvec``/``@`` run on
-    the slab."""
+    the sliced-ELL values."""
 
     data: torch.Tensor       # ELL (n_rows, width)
     cols: torch.Tensor       # ELL (n_rows, width) int64
@@ -490,8 +594,8 @@ class BellBackedOp:
 
 
 def bell_backed(plan, op) -> BellBackedOp:
-    """Wrap an assembled ELL operator with a BELL matvec (slab on the
-    operator's device).  ``plan``: a host :class:`BellPlan` or a
-    :class:`BellDev`."""
+    """Wrap an assembled ELL operator with the frame matvec (values on the
+    operator's device).  ``plan``: a host :class:`BellPlan` or
+    :class:`SellPlan`, or a :class:`SellDev`."""
     return BellBackedOp(op.data, op.cols, op.n_cols,
                         relayout_ell(plan, op.data, device=op.data.device))

@@ -245,8 +245,8 @@ def build_hierarchy(fine_op: SparseOp,
     transfers[i] connects level i (coarse) to level i+1 (fine).  dir_masks
     (coarse->fine, excluding the finest, whose operator arrives eliminated)
     restores identity rows on the Galerkin-coarsened operators.  bell_plans
-    (coarse->fine, one per level, BellDev/BellPlan or None) re-lays each
-    level's matvec onto the blocked-ELL slab; PtAP and smoother block
+    (coarse->fine, one per level, SellDev/BellPlan or None) re-lays each
+    level's matvec onto the sliced-ELL operator; PtAP and smoother block
     extraction keep reading the ELL side.  smoother: "chebyshev" |
     "jacobi" | "vanka" | "vanka_gmres" (the block sweep inside ``krylov_m``
     FGMRES iterations per level, :func:`krylov_smoother`).  compute_dtype:
@@ -271,7 +271,7 @@ def build_hierarchy(fine_op: SparseOp,
                    [(_cast(P, compute_dtype), _cast(R, compute_dtype))
                     for P, R in pr])
     # a dense-LU coarsest level is never smoothed or multiplied in the
-    # V-cycle: it gets neither a BELL slab nor a smoother
+    # V-cycle: it gets neither a BELL-frame operator nor a smoother
     coarse_lu = coarse_dense_max is None or ops[0].n_rows <= coarse_dense_max
     if bell_plans is not None:
         from .bell import BellBackedOp, bell_backed

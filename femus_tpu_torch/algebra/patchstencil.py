@@ -16,15 +16,21 @@ stencil (biquadratic Q2), stored batched as ``wt[k, i, j, p]``:
 
 Skeleton rows (coarse-edge / coarse-vertex nodes) appear in several patches;
 their glue (x routing into patch boundaries, partial-sum combination) is a
-set of one-hot routing matrices sized by the COARSE mesh only
-(``G_face``, ``M_cs`` in, ``G_edge``, ``M_vs`` out), applied with
-``torch.matmul`` around the stencil.
+set of int32 index tables sized by the COARSE mesh only
+(:class:`PatchRouting`: per (patch, face) the edge and its flip, per
+(patch, corner) the vertex, per edge and per vertex its sides).  The JAX
+package routes with one-hot matrices (``G_face``, ``M_cs`` in, ``G_edge``,
+``M_vs`` out) because its target has no gather; :class:`PatchTables` keeps
+them on the host, equal to the JAX package's, and nothing uploads them.
 
-The stencil itself — window assembly from the interior/line/corner inputs,
-the 25 shifted multiply-adds and the extraction of the per-patch partials —
-is kernel B2: ``csrc/patch_stencil.cu`` on a CUDA tensor
-(:func:`spmv_patch_cuda`), the plain PyTorch version
-:func:`_patch_chunk_plain` on a CPU tensor.
+The whole matvec — window assembly straight from ``x`` through the index
+tables, the 25 shifted multiply-adds, interior rows written into ``y``,
+line and corner partials combined onto their edges and vertices — is
+kernel B2: ``csrc/patch_stencil.cu`` on a CUDA tensor
+(:func:`spmv_patch_cuda`, one stencil launch and one combine launch per
+matvec, scalar or block), the plain PyTorch version
+:func:`_patch_matvec_plain` (index gathers, :func:`_patch_chunk_plain`,
+index combine) on a CPU tensor.
 
 Assembly targets this layout DIRECTLY: :func:`build_patch_slots` maps each
 element-Jacobian entry to its (k, i, j, p) weight slot (assembly/engine.py
@@ -35,7 +41,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Optional, Sequence, Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -74,6 +80,11 @@ class PatchTables:
     M_vs: np.ndarray                  # (n_verts, 4P): corner sums -> y_v
     owner: np.ndarray                 # (H, H, Pp) bool: this patch copy owns
                                       # the row (used for Dirichlet identity)
+    # index routing (int32; -1 = no entry), what the card reads
+    face_code: np.ndarray             # (4, Pp): 2*edge + flip of face f
+    corner_vert: np.ndarray           # (4, Pp): vertex at corner c
+    edge_sides: np.ndarray            # (n_edges, 2): 8*patch + 2*face + flip
+    vert_sides: np.ndarray            # (n_verts, maxval): 4*patch + corner
 
 
 def build_patch_tables(plan: PatchPlan, lanes: int = 128) -> PatchTables:
@@ -120,9 +131,25 @@ def build_patch_tables(plan: PatchPlan, lanes: int = 128) -> PatchTables:
         ci, cj = corner_lat[int(c)]
         owner[ci, cj, p] = True
 
+    # the same routing as index tables, from the same plan fields
+    face_code = np.full((4, Pp), -1, np.int32)
+    face_code[:, :P] = (2 * plan.patch_edges
+                        + plan.patch_edge_flip.astype(np.int64)).T
+    corner_vert = np.full((4, Pp), -1, np.int32)
+    corner_vert[:, :P] = plan.patch_verts.T
+    es = plan.edge_sides
+    edge_sides = np.where(es[:, :, 0] >= 0,
+                          8 * es[:, :, 0] + 2 * es[:, :, 1] + es[:, :, 2],
+                          -1).astype(np.int32)
+    vs = plan.vert_sides_idx
+    vert_sides = np.where(vs[:, :, 0] >= 0, 4 * vs[:, :, 0] + vs[:, :, 1],
+                          -1).astype(np.int32)
+
     return PatchTables(H=H, P=P, Pp=Pp, E=E, n_edges=ne_, n_verts=nv_, n=n,
                        G_face=G_face, G_edge=G_edge, M_cs=M_cs, M_vs=M_vs,
-                       owner=owner)
+                       owner=owner, face_code=face_code,
+                       corner_vert=corner_vert, edge_sides=edge_sides,
+                       vert_sides=vert_sides)
 
 
 def _face_line_idx(H: int, f: int):
@@ -166,50 +193,130 @@ def build_patch_slots(plan: PatchPlan, tab: PatchTables,
     return out, nv * nv * blk
 
 
-def patch_routing(tab: PatchTables, device, dtype) -> Tuple[torch.Tensor, ...]:
-    """(G_face, G_edge, M_cs, M_vs) on ``device`` in the solve precision
-    (uploaded once per mesh level; a one-hot product is exact in it)."""
-    return tuple(torch.as_tensor(m, dtype=dtype, device=device)
-                 for m in (tab.G_face, tab.G_edge, tab.M_cs, tab.M_vs))
+def routing_from_onehot(G_face, G_edge, M_cs, M_vs, meta):
+    """(face_code, corner_vert, edge_sides, vert_sides) read back from the
+    one-hot routing matrices of either package's patch operator (host
+    numpy; sides in ascending order of their one-hot row or column)."""
+    H, P, Pp, E, n_edges, n_verts = (int(v) for v in meta[:6])
+    G_face, G_edge = np.asarray(G_face), np.asarray(G_edge)
+    M_cs, M_vs = np.asarray(M_cs), np.asarray(M_vs)
+    row = G_face.argmax(axis=0).reshape(4, P)          # flip*n_edges + e
+    face_code = np.full((4, Pp), -1, np.int32)
+    face_code[:, :P] = 2 * (row % n_edges) + row // n_edges
+    corner_vert = np.full((4, Pp), -1, np.int32)
+    corner_vert[:, :P] = M_cs.argmax(axis=1).reshape(4, P)
+    edge_sides = np.full((n_edges, 2), -1, np.int32)
+    src, e = np.nonzero(G_edge)                        # flip*4P + f*P + p
+    rank = _rank_in_group(e, n_edges)
+    fl, fp = src // (4 * P), src % (4 * P)
+    edge_sides[e, rank] = 8 * (fp % P) + 2 * (fp // P) + fl
+    v, cp = np.nonzero(M_vs)                           # c*P + p
+    rank = _rank_in_group(v, n_verts)
+    vert_sides = np.full((n_verts, int(rank.max()) + 1), -1, np.int32)
+    vert_sides[v, rank] = 4 * (cp % P) + cp // P
+    return face_code, corner_vert, edge_sides, vert_sides
+
+
+def _rank_in_group(ids: np.ndarray, n_groups: int) -> np.ndarray:
+    """Position of each entry among the entries of its id (stable)."""
+    order = np.argsort(ids, kind="stable")
+    start = np.concatenate([[0], np.cumsum(np.bincount(ids,
+                                                       minlength=n_groups))])
+    rank = np.empty(len(ids), np.int64)
+    rank[order] = np.arange(len(ids)) - start[ids[order]]
+    return rank
+
+
+@dataclasses.dataclass
+class PatchRouting:
+    """Device-side index routing of one mesh level: the four int32 tables
+    the kernel reads (see :class:`PatchTables`), and, derived from them on
+    first use, the gather indices of the plain version."""
+
+    face_code: torch.Tensor           # (4, Pp) int32
+    corner_vert: torch.Tensor         # (4, Pp) int32
+    edge_sides: torch.Tensor          # (n_edges, 2) int32
+    vert_sides: torch.Tensor          # (n_verts, maxval) int32
+
+    @classmethod
+    def from_arrays(cls, arrays, device) -> "PatchRouting":
+        return cls(*(torch.as_tensor(np.ascontiguousarray(a),
+                                     dtype=torch.int32, device=device)
+                     for a in arrays))
+
+    def gather_indices(self, meta):
+        """(line_src (E, 4, Pp), corner_src (4, Pp)) into ``cat([x, 0])``
+        and (edge_src (2, E, n_edges), vert_src (maxval, n_verts)) into
+        ``cat([yl.ravel(), 0])`` and ``cat([yc.ravel(), 0])``: int64, an
+        absent entry points at the appended zero.  Cached."""
+        if getattr(self, "_gather", None) is None:
+            H, P, Pp, E, n_edges, n_verts, n = meta[:7]
+            n_int = E * E * P
+            r = torch.arange(E, device=self.face_code.device)[:, None, None]
+            code = self.face_code.long()[None]                 # (1, 4, Pp)
+            rr = torch.where(code % 2 == 1, E - 1 - r, r)
+            line_src = torch.where(code >= 0,
+                                   n_int + rr * n_edges + code // 2, n)
+            cvert = self.corner_vert.long()
+            corner_src = torch.where(cvert >= 0,
+                                     n_int + E * n_edges + cvert, n)
+            side = self.edge_sides.long().T[:, None, :]        # (2, 1, ne)
+            rr = torch.where(side % 2 == 1, E - 1 - r.view(1, E, 1),
+                             r.view(1, E, 1))
+            edge_src = torch.where(
+                side >= 0, (rr * 4 + (side // 2) % 4) * Pp + side // 8,
+                E * 4 * Pp)
+            vside = self.vert_sides.long().T                   # (maxval, nv)
+            vert_src = torch.where(vside >= 0,
+                                   (vside % 4) * Pp + vside // 4, 4 * Pp)
+            self._gather = (line_src, corner_src, edge_src, vert_src)
+        return self._gather
+
+
+def patch_routing(tab: PatchTables, device) -> PatchRouting:
+    """The index routing of ``tab`` on ``device`` (uploaded once per mesh
+    level: a few int32 per coarse face, edge and vertex)."""
+    return PatchRouting.from_arrays(
+        (tab.face_code, tab.corner_vert, tab.edge_sides, tab.vert_sides),
+        device)
 
 
 # ---------------------------------------------------------------------------
-# x -> per-patch inputs -> kernel B2 -> per-patch partials -> y
+# plain version: x -> per-patch inputs -> stencil -> per-patch partials -> y
 # ---------------------------------------------------------------------------
 
 
-def _patch_inputs(meta, G_face, M_cs, x):
+def _patch_inputs(meta, routing: PatchRouting, x):
     """x -> (interior lattice (E, E, Pp), routed face lines (E, 4, Pp),
-    routed corners (4, Pp)), zero beyond patch P.  With P == Pp the
-    interior block is a view of x.  ``meta``: an operator's meta (a block
-    operator's trailing nv is ignored)."""
+    routed corners (4, Pp)) by index gathers, zero beyond patch P.  With
+    P == Pp the interior block is a view of x.  ``meta``: an operator's
+    meta (a block operator's trailing nv is ignored)."""
     H, P, Pp, E, n_edges, n_verts, n = meta[:7]
-    n_int = E * E * P
-    xe = x[n_int:n_int + E * n_edges].view(E, n_edges)
-    xef = torch.cat([xe, xe.flip(0)], dim=1)             # straight|flipped
-    ln = (xef @ G_face).view(E, 4, P)
-    cn = (M_cs @ x[n_int + E * n_edges:]).view(4, P)
-    xi = x[:n_int].view(E, E, P)
+    line_src, corner_src, _, _ = routing.gather_indices(meta)
+    x_ext = torch.cat([x, x.new_zeros(1)])
+    ln = x_ext[line_src]
+    cn = x_ext[corner_src]
+    xi = x[:E * E * P].view(E, E, P)
     if P == Pp:
         return xi, ln, cn
     xi_p = x.new_zeros((E, E, Pp))
     xi_p[:, :, :P] = xi
-    ln_p = x.new_zeros((E, 4, Pp))
-    ln_p[:, :, :P] = ln
-    cn_p = x.new_zeros((4, Pp))
-    cn_p[:, :P] = cn
-    return xi_p, ln_p, cn_p
+    return xi_p, ln, cn
 
 
-def _patch_combine(meta, G_edge, M_vs, yi, yl, yc):
+def _patch_combine(meta, routing: PatchRouting, yi, yl, yc):
     """Per-patch partials -> global vector: interior rows as they are,
-    face lines summed onto their coarse edges, corners onto vertices."""
+    face lines summed onto their coarse edges and corners onto vertices,
+    each in the side order of the tables."""
     H, P, Pp, E, n_edges, n_verts, n = meta[:7]
+    _, _, edge_src, vert_src = routing.gather_indices(meta)
     y_int = yi[:, :, :P].reshape(E * E * P)
-    lf = yl[:, :, :P].reshape(E, 4 * P)
-    lfl = torch.cat([lf, lf.flip(0)], dim=1)             # (E, 8P)
-    y_e = lfl @ G_edge                                   # (E, n_edges)
-    y_v = M_vs @ yc[:, :P].reshape(-1)                   # (n_verts,)
+    yl_ext = torch.cat([yl.reshape(-1), yl.new_zeros(1)])
+    y_e = yl_ext[edge_src[0]] + yl_ext[edge_src[1]]      # (E, n_edges)
+    yc_ext = torch.cat([yc.reshape(-1), yc.new_zeros(1)])
+    y_v = yc_ext[vert_src[0]]
+    for s in range(1, vert_src.shape[0]):
+        y_v = y_v + yc_ext[vert_src[s]]
     return torch.cat([y_int, y_e.reshape(-1), y_v])
 
 
@@ -243,10 +350,10 @@ def _extract(Y):
 
 
 def _patch_chunk_plain(wt, xi, lines, cv):
-    """Plain PyTorch version of kernel B2: (K, H, H, Pp) weights and the
-    per-patch inputs -> (yi (E, E, Pp), yl (E, 4, Pp), yc (4, Pp)).  Builds
-    the window in memory, sums the 25 shifted products in offset order and
-    extracts the partials."""
+    """The stencil of one (K, H, H, Pp) weight slab in plain PyTorch, the
+    function of the TPU kernel: per-patch inputs -> (yi (E, E, Pp),
+    yl (E, 4, Pp), yc (4, Pp)).  Builds the window in memory, sums the 25
+    shifted products in offset order and extracts the partials."""
     H = wt.shape[1]
     X = _window(xi, lines, cv)
     Y = None
@@ -257,77 +364,124 @@ def _patch_chunk_plain(wt, xi, lines, cv):
     return _extract(Y)
 
 
+def _patch_matvec_plain(op: "PatchStencilOp", x: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the whole matvec of a scalar or block patch
+    operator: index gathers into the per-patch inputs of every column
+    variable, :func:`_patch_chunk_plain` per (row, column) variable pair
+    summed over the column variable in ascending order, index combine."""
+    nb, nv = op.meta[6], op.nv
+    inputs = [_patch_inputs(op.meta, op.routing, x[vc * nb:(vc + 1) * nb])
+              for vc in range(nv)]
+    out = []
+    for vr in range(nv):
+        acc = None
+        for vc in range(nv):
+            parts = _patch_chunk_plain(op._pair(vr, vc), *inputs[vc])
+            acc = parts if acc is None else tuple(
+                a + b for a, b in zip(acc, parts))
+        out.append(_patch_combine(op.meta, op.routing, *acc))
+    return out[0] if nv == 1 else torch.cat(out)
+
+
 _DTYPE_CODE = {torch.float32: 0, torch.float64: 1}
+# which of the two launches a call makes: the stencil kernel, the combine
+# kernel, or (a matvec) both
+STENCIL, COMBINE, MATVEC = 1, 2, 3
 
 
-def spmv_patch_cuda(wt, xi, lines, cv, out=None):
-    """Kernel B2 (``csrc/patch_stencil.cu``) on the current stream:
-    ``(yi, yl, yc)`` of one (K, H, H, Pp) weight slab.  With ``out`` (a
-    ``(yi, yl, yc)`` triple) the kernel adds into it (a block operator
-    sums its column-variable pairs this way).  Raises on anything the
-    kernel does not take; there is no fallback."""
-    tensors = (wt, xi, lines, cv) + (tuple(out) if out is not None else ())
-    dev = xi.device
-    if not all(t.is_cuda and t.device == dev for t in tensors):
-        raise ValueError("spmv_patch_cuda: all tensors must share one CUDA "
-                         "device")
-    if xi.dtype not in _DTYPE_CODE or any(t.dtype != xi.dtype
-                                          for t in tensors):
-        raise TypeError(f"spmv_patch_cuda: dtype {xi.dtype} not supported "
-                        "(float32 or float64, one for all tensors)")
-    _, H, _, Pp = wt.shape
-    E = H - 2
-    shapes = [(K, H, H, Pp), (E, E, Pp), (E, 4, Pp), (4, Pp)]
-    if out is not None:
-        shapes += shapes[1:]
-    if H < 3 or [tuple(t.shape) for t in tensors] != shapes:
-        raise ValueError("spmv_patch_cuda: shapes "
-                         f"{[tuple(t.shape) for t in tensors]} do not fit "
-                         f"the weight slab {tuple(wt.shape)}")
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("spmv_patch_cuda: tensors must be contiguous")
-    if out is None:
-        out = (torch.empty_like(xi), torch.empty_like(lines),
-               torch.empty_like(cv))
-        accumulate = 0
-    else:
-        accumulate = 1
-    yi, yl, yc = out
-    lib = _patch_lib()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.patch_stencil(wt.data_ptr(), xi.data_ptr(), lines.data_ptr(),
-                           cv.data_ptr(), yi.data_ptr(), yl.data_ptr(),
-                           yc.data_ptr(), _DTYPE_CODE[xi.dtype], H, Pp,
-                           accumulate, stream)
+def _checked_operator(op: "PatchStencilOp") -> tuple:
+    """Hold ``op`` to what the kernel takes and return its launch
+    arguments (pointers, sizes); checked once per operator object."""
+    args = op.__dict__.get("_launch_args")
+    if args is not None:
+        return args
+    H, P, Pp, E, n_edges, n_verts, nb = op.meta[:7]
+    nv = op.nv
+    wt, rt = op.wt, op.routing
+    tables = (rt.face_code, rt.corner_vert, rt.edge_sides, rt.vert_sides)
+    if not all(t.is_cuda and t.device == wt.device for t in (wt,) + tables):
+        raise ValueError("spmv_patch_cuda: weights, x and routing tables "
+                         "must share one CUDA device")
+    if wt.dtype not in _DTYPE_CODE:
+        raise TypeError(f"spmv_patch_cuda: weight dtype {wt.dtype} not "
+                        "supported (float32 or float64)")
+    if any(t.dtype != torch.int32 for t in tables):
+        raise TypeError("spmv_patch_cuda: routing tables must be int32")
+    maxval = int(rt.vert_sides.shape[1]) if rt.vert_sides.dim() == 2 else -1
+    shapes = [(nv * nv * K, H, H, Pp), (4, Pp), (4, Pp), (n_edges, 2),
+              (n_verts, maxval)]
+    got = [tuple(t.shape) for t in (wt,) + tables]
+    if (H < 3 or E != H - 2 or Pp % 128 or not 0 < P <= Pp
+            or nb != E * E * P + E * n_edges + n_verts or got != shapes):
+        raise ValueError(f"spmv_patch_cuda: shapes {got} do not fit the "
+                         f"operator's meta {op.meta}")
+    if not all(t.is_contiguous() for t in (wt,) + tables) \
+            or wt.data_ptr() % 16:
+        raise ValueError("spmv_patch_cuda: tensors must be contiguous, the "
+                         "weights 16-byte aligned")
+    args = (wt.data_ptr(), tuple(t.data_ptr() for t in tables),
+            (_DTYPE_CODE[wt.dtype], H, P, Pp, n_edges, n_verts, maxval, nv))
+    op.__dict__["_launch_args"] = args
+    return args
+
+
+def spmv_patch_cuda(op: "PatchStencilOp", x: torch.Tensor,
+                    stages: int = MATVEC, scratch=None) -> torch.Tensor:
+    """y = A x of a scalar or block patch operator through kernel B2
+    (``csrc/patch_stencil.cu``) on the current stream: one stencil launch
+    (grid over patch groups, lattice tiles and the row variable; the column
+    variables looped inside) and one combine launch.  ``stages`` other
+    than ``MATVEC`` launches one of the two alone (for timing; ``scratch``
+    then carries the ``(yl, yc)`` partials between the calls).  Raises on
+    anything the kernel does not take; there is no fallback."""
+    wt_ptr, table_ptrs, sizes = _checked_operator(op)
+    wt = op.wt
+    if not (x.is_cuda and x.device == wt.device):
+        raise ValueError("spmv_patch_cuda: weights, x and routing tables "
+                         "must share one CUDA device")
+    if x.dtype != wt.dtype:
+        raise TypeError(f"spmv_patch_cuda: dtypes x {x.dtype}, weights "
+                        f"{wt.dtype} differ")
+    if x.shape != (op.n_rows,) or not x.is_contiguous():
+        raise ValueError(f"spmv_patch_cuda: x {tuple(x.shape)} is not a "
+                         f"contiguous vector of {op.n_rows} rows")
+    fn = _patch_fn()
+    if scratch is None:
+        # the partials between the two launches: the operator's own,
+        # reused by every matvec (launches of one stream run in order)
+        scratch = op.__dict__.get("_scratch")
+        if scratch is None:
+            E, Pp, nv = op.meta[3], op.meta[2], op.nv
+            scratch = op.__dict__["_scratch"] = (
+                torch.empty((nv, E, 4, Pp), dtype=x.dtype, device=x.device),
+                torch.empty((nv, 4, Pp), dtype=x.dtype, device=x.device))
+    yl, yc = scratch
+    y = torch.empty_like(x)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    rc = fn(wt_ptr, x.data_ptr(), y.data_ptr(), yl.data_ptr(), yc.data_ptr(),
+            *table_ptrs, *sizes, stages, stream)
     if rc != 0:
         raise RuntimeError(f"patch_stencil kernel launch failed: CUDA error "
                            f"{rc}")
     spmv_patch_cuda.launches += 1
-    return out
+    return y
 
 
 spmv_patch_cuda.launches = 0
 
 
-def _patch_lib():
-    lib = load_library("algebra/csrc/patch_stencil.cu")
-    fn = lib.patch_stencil
-    if fn.argtypes is None:
+_fn = []
+
+
+def _patch_fn():
+    """The kernel's C entry point (the library is built at first use)."""
+    if not _fn:
+        fn = load_library("algebra/csrc/patch_stencil.cu").patch_matvec
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, vp]
+        fn.argtypes = [vp] * 9 + [ci] * 9 + [vp]
         fn.restype = ci
-    return lib
-
-
-def _patch_chunk(wt, xi, lines, cv, out=None):
-    """Kernel B2 for a CUDA tensor, its plain version for a CPU tensor;
-    with ``out`` the partials are added into it."""
-    if xi.device.type == "cpu":
-        parts = _patch_chunk_plain(wt, xi, lines, cv)
-        if out is None:
-            return parts
-        return tuple(o + q for o, q in zip(out, parts))
-    return spmv_patch_cuda(wt, xi, lines, cv, out=out)
+        _fn.append(fn)
+    return _fn[0]
 
 
 # ---------------------------------------------------------------------------
@@ -337,34 +491,41 @@ def _patch_chunk(wt, xi, lines, cv, out=None):
 
 @dataclasses.dataclass
 class PatchStencilOp:
-    """Device operator: stencil weights + one-hot skeleton routing (all on
-    the weights' device, in their dtype)."""
+    """Device operator: stencil weights + index skeleton routing (all on
+    the weights' device)."""
 
     wt: torch.Tensor                  # (K, H, H, Pp)
-    G_face: torch.Tensor
-    G_edge: torch.Tensor
-    M_cs: torch.Tensor
-    M_vs: torch.Tensor
+    routing: PatchRouting
     meta: Tuple[int, ...]             # H, P, Pp, E, n_edges, n_verts, n
+
+    nv = 1
 
     @property
     def n_rows(self) -> int:
         return self.meta[6]
 
-    def _inputs(self, x):
-        return _patch_inputs(self.meta, self.G_face, self.M_cs, x)
+    def _pair(self, vr: int, vc: int) -> torch.Tensor:
+        """The (K, H, H, Pp) weights coupling row variable ``vr`` to column
+        variable ``vc``."""
+        q = vr * self.nv + vc
+        return self.wt[q * K:(q + 1) * K]
 
     def _combine(self, yi, yl, yc):
-        return _patch_combine(self.meta, self.G_edge, self.M_vs, yi, yl, yc)
+        return _patch_combine(self.meta, self.routing, yi, yl, yc)
 
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
-        return self._combine(*_patch_chunk(self.wt, *self._inputs(x)))
+        """Kernel B2 for a CUDA tensor, the plain version for a CPU
+        tensor."""
+        if x.device.type == "cpu":
+            return _patch_matvec_plain(self, x)
+        return spmv_patch_cuda(self, x)
 
     def __matmul__(self, x):
         return self.matvec(x)
 
     def diagonal(self) -> torch.Tensor:
-        return self._combine(*_extract(self.wt[K0]))
+        return torch.cat([self._combine(*_extract(self._pair(v, v)[K0]))
+                          for v in range(self.nv)])
 
     def to_dense(self) -> torch.Tensor:
         """Dense matrix, one matvec per column (small operators only)."""
@@ -381,7 +542,8 @@ class BlockPatchStencilOp(PatchStencilOp):
     a (nv x nv)-block operator whose every block is a 25-point patch
     stencil; the skeleton routing is shared across variables (same node
     lattice for every biquadratic unknown).  ``meta`` adds nv:
-    (H, P, Pp, E, n_edges, n_verts, n_per_var, nv).
+    (H, P, Pp, E, n_edges, n_verts, n_per_var, nv).  The matvec is still
+    one stencil launch and one combine launch.
     """
 
     @property
@@ -392,27 +554,6 @@ class BlockPatchStencilOp(PatchStencilOp):
     def n_rows(self) -> int:
         return self.meta[6] * self.meta[7]
 
-    def _pair(self, vr: int, vc: int) -> torch.Tensor:
-        q = vr * self.nv + vc
-        return self.wt[q * K:(q + 1) * K]
-
-    def matvec(self, x: torch.Tensor) -> torch.Tensor:
-        """One launch of B2 per (row var, col var) pair; the partials of a
-        row variable accumulate in place before one skeleton combine."""
-        nb, nv = self.meta[6], self.nv
-        inputs = [self._inputs(x[vc * nb:(vc + 1) * nb]) for vc in range(nv)]
-        out = []
-        for vr in range(nv):
-            acc = None
-            for vc in range(nv):
-                acc = _patch_chunk(self._pair(vr, vc), *inputs[vc], out=acc)
-            out.append(self._combine(*acc))
-        return torch.cat(out)
-
-    def diagonal(self) -> torch.Tensor:
-        return torch.cat([self._combine(*_extract(self._pair(v, v)[K0]))
-                          for v in range(self.nv)])
-
 
 def patch_meta(tab: PatchTables) -> Tuple[int, ...]:
     """A scalar operator's ``meta``: (H, P, Pp, E, n_edges, n_verts, n)."""
@@ -420,26 +561,25 @@ def patch_meta(tab: PatchTables) -> Tuple[int, ...]:
 
 
 def make_patch_op(tab: PatchTables, wt: torch.Tensor,
-                  routing: Optional[Sequence[torch.Tensor]] = None
-                  ) -> PatchStencilOp:
+                  routing: Optional[PatchRouting] = None) -> PatchStencilOp:
     """Scalar patch operator on ``wt``'s device; ``routing``: the
-    :func:`patch_routing` tensors, if already uploaded."""
-    routing = routing or patch_routing(tab, wt.device, wt.dtype)
-    return PatchStencilOp(wt, *routing, patch_meta(tab))
+    :func:`patch_routing` tables, if already uploaded."""
+    routing = routing or patch_routing(tab, wt.device)
+    return PatchStencilOp(wt, routing, patch_meta(tab))
 
 
 def make_block_patch_op(tab: PatchTables, wt: torch.Tensor, nv: int,
-                        routing: Optional[Sequence[torch.Tensor]] = None
+                        routing: Optional[PatchRouting] = None
                         ) -> BlockPatchStencilOp:
-    routing = routing or patch_routing(tab, wt.device, wt.dtype)
-    return BlockPatchStencilOp(wt, *routing, patch_meta(tab) + (nv,))
+    routing = routing or patch_routing(tab, wt.device)
+    return BlockPatchStencilOp(wt, routing, patch_meta(tab) + (nv,))
 
 
-def dirichlet_masks(meta, G_face: torch.Tensor, M_cs: torch.Tensor,
-                    dir_mask: torch.Tensor, owner: torch.Tensor, nv: int
+def dirichlet_masks(meta, routing: PatchRouting, dir_mask: torch.Tensor,
+                    owner: torch.Tensor, nv: int
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Symmetric Dirichlet elimination in stencil form, as masks built once
-    per mesh level (``meta``, ``G_face``, ``M_cs``: an operator's):
+    per mesh level (``meta``, ``routing``: an operator's):
     ``bad`` (nv*nv*K, H, H, Pp) marks every weight whose row OR col node
     is Dirichlet; ``ident`` holds the flat slots of the centre weight of
     the OWNER copy of each Dirichlet row, which become 1.0 (ELL
@@ -447,8 +587,9 @@ def dirichlet_masks(meta, G_face: torch.Tensor, M_cs: torch.Tensor,
     :func:`apply_dirichlet`."""
     H = meta[0]
     nb = meta[6]
-    D = [_window(*_patch_inputs(meta, G_face, M_cs,
-                                dir_mask[v * nb:(v + 1) * nb].to(M_cs.dtype)))
+    D = [_window(*_patch_inputs(meta, routing,
+                                dir_mask[v * nb:(v + 1) * nb].to(
+                                    torch.float32)))
          for v in range(nv)]
     core = [d[2:2 + H, 2:2 + H] > 0.5 for d in D]
     bad = torch.stack([core[vr] | (D[vc][2 + di:2 + di + H,
@@ -473,13 +614,12 @@ def dirichlet_eliminate(op: PatchStencilOp, dir_mask: torch.Tensor,
                         owner: torch.Tensor) -> PatchStencilOp:
     """Symmetric elimination in stencil form (see :func:`dirichlet_masks`)."""
     return dataclasses.replace(op, wt=apply_dirichlet(
-        op.wt, *dirichlet_masks(op.meta, op.G_face, op.M_cs, dir_mask, owner,
-                                1)))
+        op.wt, *dirichlet_masks(op.meta, op.routing, dir_mask, owner, 1)))
 
 
 def dirichlet_eliminate_block(op: BlockPatchStencilOp, dir_mask: torch.Tensor,
                               owner: torch.Tensor) -> BlockPatchStencilOp:
     """Blockwise symmetric elimination (see :func:`dirichlet_masks`)."""
     return dataclasses.replace(op, wt=apply_dirichlet(
-        op.wt, *dirichlet_masks(op.meta, op.G_face, op.M_cs, dir_mask, owner,
+        op.wt, *dirichlet_masks(op.meta, op.routing, dir_mask, owner,
                                 op.nv)))

@@ -7,8 +7,8 @@ static); the device holds a dense, padded value array:
   entries point at the row's own diagonal with value 0, so SpMV needs no
   masking and the gather is always in bounds.
 - SpMV = ``(data * x[cols]).sum(-1)`` (gather + row sum); ``A^T y`` is an
-  ``index_add_`` scatter.  The blocked-ELL slab (bell.py) re-lays the same
-  assembled data for the fast matvec.
+  ``index_add_`` scatter.  The sliced-ELL operator (bell.py) re-lays the
+  same assembled data for the fast matvec.
 """
 from __future__ import annotations
 

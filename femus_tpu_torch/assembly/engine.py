@@ -299,11 +299,11 @@ class Assembler:
             tab = self.patch_tab
             t["patch_slots"] = i64(self._patch_slots.reshape(-1))
             t["patch_owner"] = torch.as_tensor(tab.owner, device=dev)
-            t["patch_routing"] = routing = patch_routing(tab, dev, dt)
+            t["patch_routing"] = routing = patch_routing(tab, dev)
             # symmetric Dirichlet elimination in stencil form, as masks
             t["patch_dir_bad"], t["patch_dir_ident"] = dirichlet_masks(
-                patch_meta(tab), routing[0], routing[2], t["dir_mask"],
-                t["patch_owner"], self._patch_nv)
+                patch_meta(tab), routing, t["dir_mask"], t["patch_owner"],
+                self._patch_nv)
             return t
         pat = self.pattern
         rows = np.arange(pat.n_rows)[:, None]

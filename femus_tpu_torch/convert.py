@@ -2,7 +2,7 @@
 
 The JAX package's objects hand over as plain numpy arrays (its operators'
 ``data``/``cols``, its BELL plan's index arrays and slab, its patch
-operators' weights and routing matrices, its DIA and lattice-stencil
+operators' weights and one-hot routing matrices, its DIA and lattice-stencil
 operators' data and offsets, its solution fields), so both
 packages can compute on the same operator and state.
 """
@@ -14,10 +14,11 @@ import numpy as np
 import torch
 
 from . import resolve_device
-from .algebra.bell import BellDev, BellOp
+from .algebra.bell import BellOp, build_sell_plan, relayout_ell
 from .algebra.dia import DiaOp
-from .algebra.patchstencil import BlockPatchStencilOp, PatchStencilOp
-from .algebra.sparse import SparseOp
+from .algebra.patchstencil import (BlockPatchStencilOp, PatchRouting,
+                                   PatchStencilOp, routing_from_onehot)
+from .algebra.sparse import EllPattern, SparseOp
 from .algebra.stencil import StencilOp
 
 
@@ -32,55 +33,49 @@ def sparse_op_from_numpy(data: np.ndarray, cols: np.ndarray, n_cols: int,
                                     device=device), int(n_cols))
 
 
-def bell_op_from_numpy(plan_arrays: Mapping, slab: np.ndarray,
+def bell_op_from_numpy(plan_arrays: Mapping, slab: np.ndarray, pattern,
                        device="cuda",
                        dtype: Optional[torch.dtype] = None) -> BellOp:
-    """BELL operator from a plan's arrays and its slab.
+    """Frame operator from a blocked-ELL plan's arrays, its slab and the
+    pattern the plan was built from.
 
-    ``plan_arrays`` holds ``n``, ``tile``, ``n_tiles``, ``n_xblocks``,
-    ``col_block``, ``perm`` (None or the (n,) ordering), ``block_ids``,
-    ``tile_ids``, ``dest`` and ``diag_src`` — the fields of either
-    package's ``BellPlan``.  Without ``tile_row_ptr``/``tile_rows`` (the
-    JAX plan has none) the kernel's walk order is derived from
-    ``tile_ids``: every slab row of a tile, chunk padding included (padding
-    rows hold zeros and add nothing)."""
+    ``plan_arrays`` holds ``perm`` (None or the (n,) ordering) and ``dest``
+    (the slab-flat index of every ELL slot, out of bounds for padding
+    slots) — fields of either package's ``BellPlan``; ``pattern`` has the
+    fields of either package's ``EllPattern``.  The slab's values are read
+    back into ELL order through ``dest`` and laid out in the sliced-ELL
+    plan of the same frame."""
     device = resolve_device(device)
-    p = dict(plan_arrays)
-    if "tile_row_ptr" not in p:
-        tid = np.asarray(p["tile_ids"])
-        order = np.argsort(tid, kind="stable")
-        p["tile_rows"] = order.astype(np.int32)
-        p["tile_row_ptr"] = np.searchsorted(
-            tid[order], np.arange(int(p["n_tiles"]) + 1)).astype(np.int32)
-    perm = p.get("perm")
-    if perm is not None and np.array_equal(perm, np.arange(int(p["n"]))):
-        perm = None
-    dev = BellDev.from_arrays(
-        device, n=p["n"], tile=p["tile"], n_tiles=p["n_tiles"],
-        n_xblocks=p["n_xblocks"], col_block=p["col_block"], perm=perm,
-        block_ids=p["block_ids"], tile_ids=p["tile_ids"], dest=p["dest"],
-        diag_src=p["diag_src"], tile_row_ptr=p["tile_row_ptr"],
-        tile_rows=p["tile_rows"])
-    blocks = torch.as_tensor(np.asarray(slab), dtype=dtype, device=device)
-    return BellOp(blocks.reshape(dev.slab_rows, dev.tile, 128).contiguous(),
-                  dev)
+    pat = EllPattern(pattern.n_rows, pattern.n_cols, pattern.width,
+                     np.asarray(pattern.cols), np.asarray(pattern.valid),
+                     np.asarray(pattern.indptr), np.asarray(pattern.indices))
+    flat = np.asarray(slab).reshape(-1)
+    dest = np.asarray(plan_arrays["dest"])
+    inside = dest < flat.size
+    ell = np.zeros(dest.shape, flat.dtype)
+    ell[inside] = flat[dest[inside]]
+    perm = plan_arrays.get("perm")
+    plan = build_sell_plan(pat, "identity" if perm is None else perm)
+    return relayout_ell(plan, torch.as_tensor(ell).view(pat.n_rows, pat.width),
+                        dtype=dtype, device=device)
 
 
 def patch_op_from_numpy(wt: np.ndarray, G_face: np.ndarray,
                         G_edge: np.ndarray, M_cs: np.ndarray,
                         M_vs: np.ndarray, meta, device="cuda",
                         dtype: Optional[torch.dtype] = None) -> PatchStencilOp:
-    """Patch-stencil operator from its weights, routing matrices and
-    ``meta`` — the fields of either package's ``PatchStencilOp`` (7-entry
-    meta) or ``BlockPatchStencilOp`` (8 entries, the last one nv).  The
-    routing matrices take the weights' dtype."""
+    """Patch-stencil operator from its weights, one-hot routing matrices
+    and ``meta`` — the fields of the JAX package's ``PatchStencilOp``
+    (7-entry meta) or ``BlockPatchStencilOp`` (8 entries, the last one nv).
+    The routing matrices are read back into the port's index tables on the
+    host; only those go to the device."""
     device = resolve_device(device)
     w = torch.as_tensor(np.array(wt), dtype=dtype, device=device)
-    routing = [torch.as_tensor(np.array(m), dtype=w.dtype, device=device)
-               for m in (G_face, G_edge, M_cs, M_vs)]
     meta = tuple(int(v) for v in meta)
+    routing = PatchRouting.from_arrays(
+        routing_from_onehot(G_face, G_edge, M_cs, M_vs, meta), device)
     cls = BlockPatchStencilOp if len(meta) == 8 else PatchStencilOp
-    return cls(w.contiguous(), *routing, meta)
+    return cls(w.contiguous(), routing, meta)
 
 
 def dia_op_from_numpy(data: np.ndarray, offsets, n: int, device="cuda",

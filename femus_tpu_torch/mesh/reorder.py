@@ -2,10 +2,10 @@
 
 The reference gets dof locality implicitly: METIS partitioning plus
 per-rank contiguous node renumbering (Mesh.hpp:504 FillISvector) keeps each
-rank's rows adjacent.  Here locality is worth much more — the blocked-ELL
-SpMV (algebra/bell.py) converts sparsity into dense (tile x 128-lane)
-blocks, and its slab density is set entirely by how close a node's
-neighbors sit in the numbering.  ``rcm_reorder`` renumbers mesh NODES by
+rank's rows adjacent.  Here locality matters too — the frame matvec
+(algebra/bell.py) gathers x per nonzero, and how often a warp's gathers
+hit the same cache lines is set by how close a node's neighbors sit in
+the numbering.  ``rcm_reorder`` renumbers mesh NODES by
 reverse Cuthill-McKee over the node-adjacency graph and reorders ELEMENTS
 by their first (lowest-numbered) node, so every downstream dof map
 (dofmap.py numbers Lagrange dofs in node order) inherits the locality with

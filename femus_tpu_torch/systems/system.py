@@ -71,7 +71,8 @@ class SolverConfig:
     use_mg: bool = True
     # "assembled" = ELL data + PtAP Galerkin chain; "bell" = the same
     # operators, with every Krylov/smoother matvec on a level of at least
-    # 2048 rows on the blocked-ELL slab (algebra/bell.py); "patch" = every
+    # 2048 rows through the sliced-ELL operator of the BELL frame
+    # (algebra/bell.py, kernel B1); "patch" = every
     # refined level of a PatchedMultiLevelMesh assembles straight into a
     # patch-lattice stencil (algebra/patchstencil.py, kernel B2), the coarse
     # level stays ELL (needs coarse_op="rediscretize"); "matrix_free" = the
@@ -85,9 +86,9 @@ class SolverConfig:
     # mesh at the restricted state (no PtAP schedule is built; ported for
     # operator="patch" only)
     coarse_op: str = "galerkin"
-    # dof ordering of the BELL slabs: "identity" trusts the mesh numbering
-    # (a plan whose slab exceeds 24x the ELL bytes is rebuilt with RCM),
-    # "rcm" reorders at plan build
+    # dof ordering of the BELL frame: "identity" trusts the mesh numbering
+    # (a plan whose blocked-ELL slab would exceed 24x the ELL bytes is
+    # rebuilt with RCM), "rcm" reorders at plan build
     bell_order: str = "identity"
     # dofs above which the coarsest V-cycle level is smoothed, not LU-solved
     coarse_dense_max_dofs: int = 20000
@@ -272,8 +273,10 @@ class System:
         }
 
     def _bell_dev(self, pattern):
-        """Cached BELL device plan for an operator pattern; None below 2048
-        rows, where the ELL gather is already cheap."""
+        """Cached device plan (sliced ELL in the BELL frame) for an
+        operator pattern; None below 2048 rows, where the ELL gather is
+        already cheap.  The frame is the blocked-ELL plan's: identity, or
+        RCM when asked for or when the identity slab is too sparse."""
         if pattern.n_rows < 2048:
             self._route_note(n_rows=pattern.n_rows, path="ell",
                              reason="below bell threshold (2048 rows)")
@@ -283,17 +286,19 @@ class System:
             order = self.config.bell_order
             plan = build_bell_plan(
                 pattern, perm="identity" if order == "identity" else None)
+            note = {"order": order}
             if order == "identity" and plan.nnz_bytes_ratio > 24.0:
                 ratio = plan.nnz_bytes_ratio
                 plan = build_bell_plan(pattern)        # RCM rescue
-                self._route_note(
-                    n_rows=pattern.n_rows, path="bell", order="rcm-rescue",
-                    reason=f"identity slab {ratio:.1f} B/nnz > 24.0, "
-                           f"rebuilt with RCM ({plan.nnz_bytes_ratio:.1f})")
-            else:
-                self._route_note(n_rows=pattern.n_rows, path="bell",
-                                 order=order)
-            self._bell_plans[pattern] = plan.to_device(self.device)
+                note = {"order": "rcm-rescue",
+                        "reason": f"identity slab {ratio:.1f} B/nnz > 24.0, "
+                                  f"rebuilt with RCM "
+                                  f"({plan.nnz_bytes_ratio:.1f})"}
+            sell = plan.sell()
+            self._route_note(n_rows=pattern.n_rows, path="bell",
+                             kernel="bell_spmv", sigma=sell.sigma,
+                             fill=round(sell.fill, 4), **note)
+            self._bell_plans[pattern] = sell.to_device(self.device)
         return self._bell_plans[pattern]
 
     # ---- transfers ---------------------------------------------------------
@@ -378,7 +383,7 @@ class System:
         rediscretize = cfg.coarse_op == "rediscretize" and bool(transfers)
         # a coarsest level within coarse_dense_max_dofs (a rediscretized
         # one always) is LU-solved in the V-cycle: it is never smoothed nor
-        # multiplied, so it gets no Vanka blocks and no BELL slab
+        # multiplied, so it gets no Vanka blocks and no BELL-frame operator
         if rediscretize:
             n_coarse = self.assemblers[0].n_dofs
         elif transfers:

@@ -1,11 +1,14 @@
-"""Port parity: blocked-ELL plans and the plain BELL matvec against femus_tpu.
+"""Port parity: blocked-ELL plans, the sliced-ELL layout of the card and
+its plain matvec against femus_tpu.
 
-The plan builder is copied, so every plan array must be EQUAL.  The plain
-matvec and the JAX XLA path compute the same products and differ only in
-the order of the sums: rtol 1e-12.  The CUDA kernel itself is held against
-the plain version on the card (tests/test_torch_kernels.py); here a numpy
-emulation of its walk (one warp per tile over tile_row_ptr/tile_rows)
-checks the host arrays it reads.
+The blocked-ELL plan code is copied, so every plan array must be EQUAL.
+The port's own layout (sliced ELL, ``SellPlan``) has no JAX counterpart:
+its invariants are checked here, and its plain matvec against the JAX
+package's ``BellOp.matvec`` and ``_matvec_xla_frame`` in float64 — the same
+products in another order: rtol 1e-12.  The CUDA kernel itself is held
+against the plain version on the card (tests/test_torch_kernels.py); here a
+numpy emulation of its walk (one warp per slice, lane = row, groups of four
+columns) checks the arrays it reads.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -72,11 +75,11 @@ def test_plan_arrays_equal(kind, ns, order, tile):
               "twin", "chunk", "tile_widths"):
         assert getattr(jp, f) == getattr(tp, f), f
     assert jp.slab_rows == tp.slab_rows
-    # the kernel's walk covers exactly the real slab rows, tile by tile
-    ptr, rows = tp.tile_row_ptr, tp.tile_rows
-    assert ptr[0] == 0 and ptr[-1] == len(rows) and np.all(np.diff(ptr) >= 0)
-    assert np.all(tp.tile_ids[rows] == np.repeat(np.arange(tp.n_tiles),
-                                                 np.diff(ptr)))
+    assert jp.nnz_bytes_ratio == tp.nnz_bytes_ratio
+    # the card's layout lives in the same frame
+    sp = tp.sell()
+    np.testing.assert_array_equal(sp.perm, jp.perm)
+    np.testing.assert_array_equal(sp.iperm, jp.iperm)
 
 
 @pytest.mark.parametrize("kind,ns", CASES)
@@ -91,24 +94,123 @@ def _fem_data(pat, seed=1):
         * pat.valid
 
 
-@pytest.mark.parametrize("kind,ns", [("random", None), ("poisson", (7, 5))])
+def _holed_pattern():
+    """Random pattern with empty rows, rows without a diagonal entry and a
+    row count that is no multiple of 32."""
+    rng = np.random.default_rng(7)
+    n = 301
+    r = np.concatenate([np.arange(5, n), rng.integers(0, n, 2000)])
+    c = np.concatenate([np.arange(5, n), rng.integers(0, n, 2000)])
+    keep = (r != 7) & (r != 100)
+    return jpairs(r[keep], c[keep], n, n)
+
+
+SELL_CASES = CASES + [("holed", None)]
+
+
+def _sell_pattern(kind, ns):
+    return _holed_pattern() if kind == "holed" else _pattern(kind, ns)
+
+
+@pytest.mark.parametrize("kind,ns", SELL_CASES)
 @pytest.mark.parametrize("order", ["identity", None])
-@pytest.mark.parametrize("tile", [8, 16])
-def test_plain_matvec_matches_jax(kind, ns, order, tile):
-    pat = _pattern(kind, ns)
+@pytest.mark.parametrize("sigma", [32, 512])
+def test_sell_plan_invariants(kind, ns, order, sigma):
+    """Every nonzero stored once at the slot the kernel computes, padding
+    reads the zero, the row order is a permutation sorted by length inside
+    each window, diagonal slots right, fill reported."""
+    pat = _tpat(_sell_pattern(kind, ns))
+    sp = tbell.build_sell_plan(pat, order, sigma)
+    n, C, V = pat.n_rows, tbell.SELL_C, tbell.SELL_V
+    assert sp.n == n and sp.nnz == pat.nnz and sp.sigma == sigma
+    assert sp.n_slices == -(-n // C)
+    ptr = sp.slice_ptr.astype(np.int64)
+    assert ptr[0] == 0 and np.all(np.diff(ptr) >= 0)
+    assert sp.total == ptr[-1] * C * V == len(sp.cols) == len(sp.src) - 1
+    assert sp.fill == sp.total / pat.nnz >= 1.0
+    assert sp.cols.dtype == np.int32 and sp.row_order.dtype == np.int32
+    # row order: a permutation of the frame rows, -1 only beyond row n
+    ro = sp.row_order
+    assert len(ro) == sp.n_slices * C
+    np.testing.assert_array_equal(np.sort(ro[ro >= 0]), np.arange(n))
+    assert (ro < 0).sum() == sp.n_slices * C - n
+    lens = np.zeros(len(ro), np.int64)
+    lens[ro >= 0] = np.diff(pat.indptr)[sp.perm[ro[ro >= 0]]]
+    for w0 in range(0, len(ro), sigma):          # sorted inside each window
+        assert np.all(np.diff(lens[w0:w0 + sigma]) <= 0)
+        real = ro[w0:w0 + sigma]
+        assert np.all((real[real >= 0] >= w0) & (real[real >= 0] < w0 + sigma))
+    # a slice is as wide as its longest row, rounded up to V columns
+    np.testing.assert_array_equal(
+        np.diff(ptr), -(-lens.reshape(-1, C).max(axis=1) // V))
+    # every ELL slot of a nonzero is the source of exactly one stored slot;
+    # all other stored slots (and the extra last one) read the zero
+    ell_size = n * pat.width
+    stored = sp.src[:-1]
+    np.testing.assert_array_equal(np.sort(stored[stored < ell_size]),
+                                  np.sort(pat.csr_to_ell_slots()))
+    assert sp.src[-1] == ell_size and stored.max() <= ell_size
+    # slot formula of the kernel: (slice_ptr[s] + k/V)*C*V + r*V + k%V holds
+    # row ro[s*C + r]'s k-th nonzero, column in frame numbering
+    A = np.zeros((n, n))
+    slot_val = np.arange(1, sp.total + 1, dtype=np.float64)
+    slot_val[stored == ell_size] = 0.0
+    for s_ in range(sp.n_slices):
+        for r in range(C):
+            row = ro[s_ * C + r]
+            for k in range((ptr[s_ + 1] - ptr[s_]) * V):
+                slot = (ptr[s_] + k // V) * C * V + r * V + k % V
+                if row < 0:
+                    assert slot_val[slot] == 0.0
+                    continue
+                A[row, sp.cols[slot]] += slot_val[slot]
+    ref = np.zeros((n, n))
+    counts = np.diff(pat.indptr)
+    rows_o = np.repeat(np.arange(n), counts)
+    np.add.at(ref, (sp.iperm[rows_o], sp.iperm[pat.indices]), 1.0)
+    np.testing.assert_array_equal(A != 0, ref != 0)
+    assert np.all(ref <= 1.0)
+    # diagonal slots, by ORIGINAL row; rows without one read the zero
+    has_diag = np.zeros(n, bool)
+    has_diag[rows_o[pat.indices == rows_o]] = True
+    for i in range(n):
+        d = sp.diag_slot[i]
+        if has_diag[i]:
+            assert sp.cols[d] == sp.iperm[i] and stored[d] < ell_size
+            s_ = np.searchsorted(ptr, d // (C * V), side="right") - 1
+            assert ro[s_ * C + (d // V) % C] == sp.iperm[i]
+        else:
+            assert d == sp.total
+    assert not has_diag.all() or kind != "holed"
+    with pytest.raises(ValueError, match="multiple"):
+        tbell.build_sell_plan(pat, order, 48)
+
+
+@pytest.mark.parametrize("kind,ns", SELL_CASES)
+@pytest.mark.parametrize("order", ["identity", None])
+@pytest.mark.parametrize("sigma", [32, None])
+def test_plain_matvec_matches_jax(kind, ns, order, sigma):
+    """The plain sliced-ELL matvec against femus_tpu's BellOp.matvec and
+    _matvec_xla_frame in float64 (1e-12): random patterns (one with empty
+    rows and n no multiple of 32), Poisson, the 8x8 NS pattern; identity
+    and RCM frames; a one-slice window and the default one."""
+    pat = _sell_pattern(kind, ns)
     data = _fem_data(pat)
     x = np.random.default_rng(2).standard_normal(pat.n_rows)
-    jp = jbell.build_bell_plan(pat, tile=tile, perm=order)
+    jp = jbell.build_bell_plan(pat, perm=order)
     jop = jbell.relayout_ell(jp, jnp.asarray(data))
-    top = tbell.relayout_ell(tbell.build_bell_plan(_tpat(pat), tile=tile,
-                                                   perm=order),
-                             torch.as_tensor(data), device="cpu")
-    np.testing.assert_array_equal(np.asarray(jop.blocks), top.blocks.numpy())
+    tp = tbell.build_bell_plan(_tpat(pat), perm=order)
+    plan = tp if sigma is None else tp.sell(sigma)
+    top = tbell.relayout_ell(plan, torch.as_tensor(data), device="cpu")
+    assert top.dev.sigma == (tbell.SELL_SIGMA if sigma is None else sigma)
+    assert top.vals.shape == (top.dev.total + 1,) and top.vals[-1] == 0
     y_ref = np.asarray(jop.matvec(jnp.asarray(x)))
     y = top.matvec(torch.as_tensor(x)).numpy()
     np.testing.assert_allclose(y, y_ref, rtol=1e-12, atol=1e-12)
     # frame-resident form against _matvec_xla_frame
     xf = np.asarray(jop.to_frame(jnp.asarray(x)))
+    np.testing.assert_array_equal(
+        top.to_frame(torch.as_tensor(x)).numpy(), xf)
     np.testing.assert_allclose(
         tbell._matvec_plain_frame(top, torch.as_tensor(xf)).numpy(),
         np.asarray(jbell._matvec_xla_frame(jop, jnp.asarray(xf))),
@@ -122,28 +224,30 @@ def test_plain_matvec_matches_jax(kind, ns, order, tile):
 
 
 def _kernel_walk(op, xf):
-    """numpy emulation of bell_spmv.cu: per tile, per listed slab row, the
-    C-wide x segment of each packed block times the slab row."""
+    """numpy emulation of sell_spmv.cu: per slice, per lane, the groups of
+    four columns in order, one running sum per lane, y through
+    row_order."""
     p = op.dev
-    slab = op.blocks.numpy()
-    bids = p.block_ids.numpy().reshape(p.slab_rows, p.pack)
-    ptr, rows = p.tile_row_ptr.numpy(), p.tile_rows.numpy()
-    C = p.col_block
-    xp = np.zeros(p.n_xblocks * C)
-    xp[:p.n] = xf
-    y = np.zeros(p.n_tiles * p.tile)
-    for t in range(p.n_tiles):
-        acc = np.zeros(p.tile)
-        for r in rows[ptr[t]:ptr[t + 1]]:
-            xs = np.concatenate([xp[b * C:(b + 1) * C] for b in bids[r]])
-            acc += slab[r] @ xs
-        y[t * p.tile:(t + 1) * p.tile] = acc
-    return y[:p.n]
+    C, V = tbell.SELL_C, tbell.SELL_V
+    vals, cols = op.vals.numpy(), p.cols.numpy()
+    ptr, ro = p.slice_ptr.numpy(), p.row_order.numpy()
+    y = np.full(p.n, np.nan)
+    for s in range(p.n_slices):
+        for lane in range(C):
+            acc = 0.0
+            for g in range(ptr[s], ptr[s + 1]):
+                base = g * C * V + lane * V
+                for k in range(V):
+                    acc += vals[base + k] * xf[cols[base + k]]
+            if ro[s * C + lane] >= 0:
+                y[ro[s * C + lane]] = acc
+    return y
 
 
-@pytest.mark.parametrize("kind,ns", [("random", None), ("ns", (8, 8))])
+@pytest.mark.parametrize("kind,ns", [("random", None), ("ns", (8, 8)),
+                                     ("holed", None)])
 def test_kernel_walk_matches_plain(kind, ns):
-    pat = _pattern(kind, ns)
+    pat = _sell_pattern(kind, ns)
     plan = tbell.build_bell_plan(_tpat(pat), perm="identity")
     op = tbell.relayout_ell(plan, torch.as_tensor(_fem_data(pat)),
                             device="cpu")
@@ -154,22 +258,23 @@ def test_kernel_walk_matches_plain(kind, ns):
         rtol=1e-12, atol=1e-12)
 
 
-def test_convert_bell_op_from_jax_plan():
-    """The JAX plan's arrays and slab, carried over with convert.py, give
-    the JAX matvec; the derived walk order includes the padding rows."""
+@pytest.mark.parametrize("order", ["identity", None])
+def test_convert_bell_op_from_jax_plan(order):
+    """The JAX plan's arrays and slab, carried over with convert.py (the
+    slab read back through ``dest``), give the JAX matvec."""
     pat = _mesh_pattern("poisson", (7, 5))
-    jp = jbell.build_bell_plan(pat, perm=None)
+    jp = jbell.build_bell_plan(pat, perm=order)
     jop = jbell.relayout_ell(jp, jnp.asarray(_fem_data(pat)))
-    arrays = {f: getattr(jp, f) for f in
-              ("n", "tile", "n_tiles", "n_xblocks", "col_block", "perm",
-               "block_ids", "tile_ids", "dest", "diag_src")}
-    top = convert.bell_op_from_numpy(arrays, np.asarray(jop.blocks),
+    arrays = {"perm": None if jp.identity else jp.perm, "dest": jp.dest}
+    top = convert.bell_op_from_numpy(arrays, np.asarray(jop.blocks), pat,
                                      device="cpu")
+    assert (top.dev.perm is None) == (order == "identity")
     x = np.random.default_rng(4).standard_normal(pat.n_rows)
     np.testing.assert_allclose(top.matvec(torch.as_tensor(x)).numpy(),
                                np.asarray(jop.matvec(jnp.asarray(x))),
                                rtol=1e-12, atol=1e-12)
-    assert len(top.dev.tile_rows) == jp.slab_rows
+    np.testing.assert_allclose(top.diagonal().numpy(),
+                               np.asarray(jop.diagonal()), rtol=1e-12)
     xf = top.to_frame(torch.as_tensor(x)).numpy()
     np.testing.assert_allclose(
         _kernel_walk(top, xf),
@@ -178,17 +283,33 @@ def test_convert_bell_op_from_jax_plan():
 
 
 def test_relayout_dtypes_and_backed_op():
-    """f32/f64/bf16 slabs hold the ELL data rounded to the slab type;
+    """f32/f64/bf16 values hold the ELL data rounded to the storage type
+    (padding and the last slot zero); the matvec accumulates in x's type;
     BellBackedOp keeps the ELL side for rmatvec and to_dense."""
     from femus_tpu_torch.algebra.sparse import SparseOp
     pat = _mesh_pattern("ns", (8, 8))
     data = torch.as_tensor(_fem_data(pat))
     plan = tbell.build_bell_plan(_tpat(pat), perm="identity")
-    ref = tbell.relayout_ell(plan, data, device="cpu").blocks
+    sp = plan.sell()
+    ref = tbell.relayout_ell(plan, data, device="cpu").vals
+    flat = torch.cat([data.reshape(-1), data.new_zeros(1)])
+    assert torch.equal(ref, flat[torch.as_tensor(sp.src)])
+    # invalid ELL slots may hold anything: they are never a source
+    noisy = torch.where(torch.as_tensor(pat.valid), data, 99.0)
+    assert torch.equal(tbell.relayout_ell(plan, noisy, device="cpu").vals,
+                       ref)
+    x32 = torch.as_tensor(np.random.default_rng(5).standard_normal(
+        pat.n_rows), dtype=torch.float32)
     for dt in (torch.float32, torch.float64, torch.bfloat16):
         op = tbell.relayout_ell(plan, data, dtype=dt, device="cpu")
-        assert op.blocks.dtype == dt
-        assert torch.equal(op.blocks, ref.to(dt))
+        assert op.vals.dtype == dt
+        assert torch.equal(op.vals, ref.to(dt))
+        y = op.matvec_frame(x32)
+        assert y.dtype == torch.float32
+        want = tbell.BellOp(ref.to(dt).double(), op.dev).matvec_frame(
+            x32.double())
+        np.testing.assert_allclose(y.double().numpy(), want.numpy(),
+                                   rtol=0, atol=1e-5 * float(want.abs().max()))
     A = SparseOp(data, torch.as_tensor(pat.cols, dtype=torch.int64),
                  pat.n_cols)
     B = tbell.bell_backed(plan, A)

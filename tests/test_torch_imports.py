@@ -126,9 +126,8 @@ def test_cuda_matvec_never_falls_back_to_the_host(monkeypatch):
     tab = ps.build_patch_tables(plan)
     pop = ps.make_patch_op(tab, torch.ones(ps.K, tab.H, tab.H, tab.Pp,
                                            dtype=torch.float64))
-    ins = pop._inputs(torch.ones(tab.n, dtype=torch.float64))
     with pytest.raises((ValueError, RuntimeError)):
-        ps.spmv_patch_cuda(pop.wt, *ins)
+        ps.spmv_patch_cuda(pop, torch.ones(tab.n, dtype=torch.float64))
     from femus_tpu_torch.algebra import dia, stencil
     d = dia.DiaOp(torch.ones(3, 12, dtype=torch.float64), (-4, 0, 4), 12)
     st = stencil.build_stencil(d, 4)
@@ -136,16 +135,41 @@ def test_cuda_matvec_never_falls_back_to_the_host(monkeypatch):
         dia.spmv_dia_cuda(d, torch.ones(12, dtype=torch.float64))
     with pytest.raises(ValueError):
         stencil.spmv_stencil_cuda(st, torch.ones(12, dtype=torch.float64))
-    # a CUDA-routed patch matvec whose kernel cannot launch raises instead
-    # of returning the plain result
+    # CUDA-routed frame and patch matvecs (scalar and block) whose kernel
+    # cannot launch raise instead of returning the plain result
     plain = []
+    monkeypatch.setattr(bell, "_matvec_plain_frame",
+                        lambda *a: plain.append(1))
+    monkeypatch.setattr(ps, "_patch_matvec_plain",
+                        lambda *a: plain.append(1))
     monkeypatch.setattr(ps, "_patch_chunk_plain",
                         lambda *a: plain.append(1))
     monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda t: True))
-    n0 = ps.spmv_patch_cuda.launches
-    with pytest.raises(RuntimeError, match="nvcc|CUDA"):
-        ps._patch_chunk(*(t.to("meta") for t in (pop.wt,) + ins))
-    assert not plain and ps.spmv_patch_cuda.launches == n0
+
+    def on_meta(obj):
+        return dataclasses.replace(obj, **{
+            f.name: getattr(obj, f.name).to("meta")
+            for f in dataclasses.fields(obj)
+            if torch.is_tensor(getattr(obj, f.name))})
+
+    mop = bell.BellOp(op.vals.to("meta"), on_meta(op.dev))
+    bop = ps.make_block_patch_op(tab, torch.ones(4 * ps.K, tab.H, tab.H,
+                                                 tab.Pp, dtype=torch.float64),
+                                 2)
+    for fn, call in (
+            (bell.spmv_bell_cuda, lambda: mop.matvec_frame(
+                torch.ones(64, dtype=torch.float64, device="meta"))),
+            (ps.spmv_patch_cuda, lambda: dataclasses.replace(
+                pop, wt=pop.wt.to("meta"), routing=on_meta(pop.routing)
+            ).matvec(torch.ones(tab.n, dtype=torch.float64, device="meta"))),
+            (ps.spmv_patch_cuda, lambda: dataclasses.replace(
+                bop, wt=bop.wt.to("meta"), routing=on_meta(bop.routing)
+            ).matvec(torch.ones(2 * tab.n, dtype=torch.float64,
+                                device="meta")))):
+        n0 = fn.launches
+        with pytest.raises(RuntimeError, match="nvcc|CUDA"):
+            call()
+        assert not plain and fn.launches == n0
     # the same for the DIA and lattice-stencil matvecs (kernels B4 and B3)
     monkeypatch.setattr(dia, "_matvec_plain", lambda *a: plain.append(1))
     monkeypatch.setattr(stencil, "_matvec_plain",

@@ -43,22 +43,43 @@ def _ns_jacobian():
     return asm.pattern, data
 
 
+def _holed_pattern():
+    """Random pattern with empty rows, rows without a diagonal entry and a
+    row count (301) that is no multiple of the slice height."""
+    from femus_tpu_torch.algebra.sparse import pattern_from_pairs
+    rng = np.random.default_rng(7)
+    n = 301
+    r = np.concatenate([np.arange(5, n), rng.integers(0, n, 2000)])
+    c = np.concatenate([np.arange(5, n), rng.integers(0, n, 2000)])
+    keep = (r != 7) & (r != 100)
+    pat = pattern_from_pairs(r[keep], c[keep], n, n)
+    data = torch.as_tensor(rng.standard_normal(pat.cols.shape) * pat.valid)
+    return pat, data
+
+
+def _abs_op(op):
+    return bell.BellOp(op.vals.abs(), op.dev)
+
+
 # f32: the kernel and the plain version sum in different orders, so the
 # error is held at a float32 rounding budget of max(|A| |x|); f64 likewise
-# at a float64 budget; a bf16 slab multiplies into float32 in both
+# at a float64 budget; bf16 values multiply into float32 in both
 @pytest.mark.cuda
-@pytest.mark.parametrize("slab_dtype,x_dtype,rtol", [
+@pytest.mark.parametrize("val_dtype,x_dtype,rtol", [
     (torch.float32, torch.float32, 1e-5),
     (torch.float64, torch.float64, 1e-12),
     (torch.bfloat16, torch.float32, 1e-5),
+    (torch.float32, torch.float64, 1e-12),
 ])
-@pytest.mark.parametrize("tile", [8, 16])
+@pytest.mark.parametrize("case", ["ns", "holed"])
 @pytest.mark.parametrize("order", ["identity", None])
-def test_bell_kernel_matches_plain(cuda, slab_dtype, x_dtype, rtol, tile,
-                                   order):
-    pattern, data = _ns_jacobian()
-    plan = bell.build_bell_plan(pattern, tile=tile, perm=order)
-    op = bell.relayout_ell(plan, data, dtype=slab_dtype, device=cuda)
+@pytest.mark.parametrize("sigma", [32, None])
+def test_bell_kernel_matches_plain(cuda, val_dtype, x_dtype, rtol, case,
+                                   order, sigma):
+    pattern, data = _ns_jacobian() if case == "ns" else _holed_pattern()
+    plan = bell.build_bell_plan(pattern, perm=order)
+    op = bell.relayout_ell(plan if sigma is None else plan.sell(sigma), data,
+                           dtype=val_dtype, device=cuda)
     x = torch.as_tensor(np.random.default_rng(1).standard_normal(plan.n),
                         dtype=x_dtype, device=cuda)
     n0 = bell.spmv_bell_cuda.launches
@@ -66,12 +87,15 @@ def test_bell_kernel_matches_plain(cuda, slab_dtype, x_dtype, rtol, tile,
     torch.cuda.synchronize()
     assert bell.spmv_bell_cuda.launches == n0 + 1
     y_ref = bell._matvec_plain_frame(op, x)
-    scale = bell._matvec_plain_frame(bell.BellOp(op.blocks.abs(), op.dev),
-                                     x.abs()).abs().max()
+    scale = bell._matvec_plain_frame(_abs_op(op), x.abs()).abs().max()
     assert y.dtype == x_dtype and y.shape == (plan.n,)
     assert float((y - y_ref).abs().max()) <= rtol * float(scale)
     # deterministic: no atomics, so a second launch repeats bit for bit
     assert torch.equal(op.matvec_frame(x), y)
+    # the whole operator interface rides the kernel
+    n0 = bell.spmv_bell_cuda.launches
+    assert torch.equal(op.matvec(op.from_frame(x)), op.from_frame(y))
+    assert bell.spmv_bell_cuda.launches == n0 + 1
 
 
 @pytest.mark.cuda
@@ -84,13 +108,38 @@ def test_bell_kernel_rejects_bad_input(cuda):
         op.matvec_frame(x)
     with pytest.raises(ValueError):
         op.matvec_frame(torch.ones(plan.n + 1, device=cuda))
+    with pytest.raises(ValueError):
+        bell.spmv_bell_cuda(bell.BellOp(op.vals[:-1], op.dev),
+                            torch.ones(plan.n, device=cuda))
+    with pytest.raises(ValueError):
+        bell.spmv_bell_cuda(op, torch.ones(plan.n))
+    with pytest.raises(TypeError):
+        bell.spmv_bell_cuda(bell.BellOp(op.vals.half(), op.dev),
+                            torch.ones(plan.n, device=cuda))
 
 
-def _patch_op(nv: int, dtype, device):
-    """Eliminated patch operator on refine_patched(unit_box((5, 3)), 3)
-    (H=17, P=15 padded to 128): Poisson (nv=1) or elasticity (nv=2) at a
-    seeded random state, assembled on the host."""
-    mesh, plan = refine_patched(unit_box((5, 3)), 3)
+def _rotated(coarse):
+    """The same coarse quad mesh with every second element's local frame
+    turned a quarter (corners, mid-edge nodes and boundary face ids shifted
+    alike): neighbouring patches then disagree on the direction of their
+    shared edge, which a generated box never has."""
+    rot = np.arange(coarse.n_elems) % 2 == 1
+    conn = coarse.conn.copy()
+    conn[rot] = coarse.conn[rot][:, [1, 2, 3, 0, 5, 6, 7, 4, 8]]
+    return dataclasses.replace(coarse, conn=conn, boundary={
+        k: dataclasses.replace(b, iface=np.where(
+            rot[b.elem], (b.iface - 1) % 4, b.iface).astype(b.iface.dtype))
+        for k, b in coarse.boundary.items()})
+
+
+def _patch_op(nv: int, dtype, device, ns=(5, 3), levels=3, rotate=False):
+    """Eliminated patch operator on refine_patched(unit_box(ns), levels)
+    (default H=17, P=15 padded to 128): Poisson (nv=1) or elasticity
+    (nv=2) at a seeded random state, assembled on the host; ``rotate``:
+    every second coarse element's local frame turned a quarter, so patch
+    faces run against their edges."""
+    coarse = _rotated(unit_box(ns)) if rotate else unit_box(ns)
+    mesh, plan = refine_patched(coarse, levels)
     names = ["u"] if nv == 1 else ["DX", "DY"]
     asm = Assembler(mesh, [Unknown(n) for n in names], device="cpu")
     asm.set_volume_form(poisson("u") if nv == 1 else
@@ -104,57 +153,93 @@ def _patch_op(nv: int, dtype, device):
         if nv > 1 else ps.make_patch_op(asm.patch_tab, op.wt.to(device, dtype))
 
 
+def _random_patch_op(H: int, P: int, nv: int, dtype, device):
+    """Patch operator with seeded random weights (zero in the padding
+    patches) on a strip of P coarse elements with H lattice nodes per
+    side; rotated frames, so some faces are flipped.  The coarse topology
+    does not depend on the depth, so the plan is the once-refined one with
+    H set."""
+    _, plan = refine_patched(_rotated(unit_box((P, 1))), 1)
+    plan = dataclasses.replace(plan, H=H, E=H - 2, n_int=P * (H - 2) ** 2)
+    tab = ps.build_patch_tables(plan)
+    assert (tab.H, tab.P) == (H, P)
+    assert P == 1 or (tab.face_code % 2 == 1).any()
+    gen = torch.Generator().manual_seed(5)
+    wt = torch.randn(nv * nv * ps.K, H, H, tab.Pp, generator=gen,
+                     dtype=torch.float64)
+    wt[..., P:] = 0.0
+    wt = wt.to(device, dtype)
+    return ps.make_block_patch_op(tab, wt, nv) if nv > 1 \
+        else ps.make_patch_op(tab, wt)
+
+
+def _check_patch_matvec(op, dtype, rtol):
+    """The whole CUDA matvec of ``op`` against the plain version on the
+    same tensors, at a rounding budget of max(|A| |x|)."""
+    x = torch.as_tensor(np.random.default_rng(1).standard_normal(op.n_rows),
+                        dtype=dtype, device=op.wt.device)
+    n0 = ps.spmv_patch_cuda.launches
+    y = op.matvec(x)
+    torch.cuda.synchronize()
+    # one wrapper call per matvec, scalar or block
+    assert ps.spmv_patch_cuda.launches == n0 + 1
+    ref = ps._patch_matvec_plain(op, x)
+    scale = ps._patch_matvec_plain(dataclasses.replace(op, wt=op.wt.abs()),
+                                   x.abs()).max()
+    assert y.dtype == dtype and y.shape == ref.shape
+    assert float((y - ref).abs().max()) <= rtol * float(scale)
+    # no atomics: a second matvec repeats bit for bit
+    assert torch.equal(op.matvec(x), y)
+    # the two launches alone, partials carried in the scratch arrays
+    H, P, Pp, E = op.meta[:4]
+    scratch = (torch.zeros((op.nv, E, 4, Pp), dtype=dtype, device=x.device),
+               torch.zeros((op.nv, 4, Pp), dtype=dtype, device=x.device))
+    y1 = ps.spmv_patch_cuda(op, x, stages=ps.STENCIL, scratch=scratch)
+    y2 = ps.spmv_patch_cuda(op, x, stages=ps.COMBINE, scratch=scratch)
+    nb, n_int = op.meta[6], E * E * P
+    for v in range(op.nv):
+        assert torch.equal(y1[v * nb:v * nb + n_int], y[v * nb:v * nb + n_int])
+        assert torch.equal(y2[v * nb + n_int:(v + 1) * nb],
+                           y[v * nb + n_int:(v + 1) * nb])
+
+
 # same float32/float64 budgets as B1: the kernel fuses multiply-adds and
 # skips the zero ring, the plain version does neither
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-5),
                                         (torch.float64, 1e-12)])
 @pytest.mark.parametrize("nv", [1, 2])
-def test_patch_kernel_matches_plain(cuda, dtype, rtol, nv):
-    op = _patch_op(nv, dtype, cuda)
-    nb = op.meta[6]
-    x = torch.as_tensor(np.random.default_rng(1).standard_normal(nb * nv),
-                        dtype=dtype, device=cuda)
-    absop = dataclasses.replace(op, wt=op.wt.abs())
-    for vr in range(nv):
-        acc = acc_ref = scale = None
-        for vc in range(nv):
-            ins = op._inputs(x[vc * nb:(vc + 1) * nb])
-            n0 = ps.spmv_patch_cuda.launches
-            acc = ps.spmv_patch_cuda(op._pair(vr, vc) if nv > 1 else op.wt,
-                                     *ins, out=acc)
-            torch.cuda.synchronize()
-            assert ps.spmv_patch_cuda.launches == n0 + 1
-            ref = ps._patch_chunk_plain(op._pair(vr, vc) if nv > 1
-                                        else op.wt, *ins)
-            acc_ref = ref if acc_ref is None else tuple(
-                a + b for a, b in zip(acc_ref, ref))
-            ab = ps._patch_chunk_plain(
-                absop._pair(vr, vc) if nv > 1 else absop.wt,
-                *(t.abs() for t in ins))
-            scale = ab if scale is None else tuple(
-                a + b for a, b in zip(scale, ab))
-        for got, want, s in zip(acc, acc_ref, scale):
-            assert got.dtype == dtype and got.shape == want.shape
-            assert float((got - want).abs().max()) <= rtol * float(s.max())
-    # the operator's CUDA matvec runs the kernel, nv*nv launches, and
-    # repeats bit for bit (no atomics)
-    n0 = ps.spmv_patch_cuda.launches
-    y = op.matvec(x)
-    assert ps.spmv_patch_cuda.launches == n0 + nv * nv
-    assert torch.equal(op.matvec(x), y)
+@pytest.mark.parametrize("rotate", [False, True])
+def test_patch_kernel_matches_plain(cuda, dtype, rtol, nv, rotate):
+    _check_patch_matvec(_patch_op(nv, dtype, cuda, rotate=rotate), dtype,
+                        rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-5),
+                                        (torch.float64, 1e-12)])
+@pytest.mark.parametrize("nv", [1, 2])
+@pytest.mark.parametrize("H,P", [(3, 1), (17, 15), (33, 1024), (9, 130)])
+def test_patch_kernel_random_weights(cuda, dtype, rtol, nv, H, P):
+    _check_patch_matvec(_random_patch_op(H, P, nv, dtype, cuda), dtype, rtol)
 
 
 @pytest.mark.cuda
 def test_patch_kernel_rejects_bad_input(cuda):
     op = _patch_op(1, torch.float32, cuda)
-    xi, ln, cv = op._inputs(torch.ones(op.n_rows, device=cuda))
+    x = torch.ones(op.n_rows, device=cuda)
     with pytest.raises(TypeError):
-        ps.spmv_patch_cuda(op.wt, xi.double(), ln, cv)
+        ps.spmv_patch_cuda(op, x.double())
     with pytest.raises(ValueError):
-        ps.spmv_patch_cuda(op.wt, xi[:-1], ln, cv)
+        ps.spmv_patch_cuda(op, x[:-1])
     with pytest.raises(ValueError):
-        ps.spmv_patch_cuda(op.wt, xi.cpu(), ln, cv)
+        ps.spmv_patch_cuda(op, x.cpu())
+    with pytest.raises(ValueError):
+        ps.spmv_patch_cuda(dataclasses.replace(op, wt=op.wt[:-1]), x)
+    bad = dataclasses.replace(op.routing,
+                              face_code=op.routing.face_code.long())
+    with pytest.raises(TypeError):
+        ps.spmv_patch_cuda(dataclasses.replace(op, routing=bad), x)
 
 
 def _dia_case(case: str, dtype, device):
@@ -268,8 +353,8 @@ def test_lattice_kernels_reject_bad_input(cuda):
 @pytest.mark.parametrize("H,P", [(3, 1), (17, 15), (33, 1024)])
 def test_patch_bound_counts_what_the_kernel_reads(H, P):
     """chip_smoke's B2 bound: every weight whose window position lies in
-    the H x H lattice (the rest multiply the zero ring), the inputs and
-    the partials once each."""
+    the H x H lattice (the rest multiply the zero ring), x and y once
+    each, and the four int32 routing tables."""
     import os
     import sys
     sys.path.insert(0, os.path.dirname(os.path.dirname(
@@ -281,5 +366,10 @@ def test_patch_bound_counts_what_the_kernel_reads(H, P):
     X = ps._window(*ones)
     read = sum(int(X[a:a + H, b:b + H].count_nonzero())
                for a, b in (divmod(k, 5) for k in range(ps.K)))
-    vectors = 2 * sum(t.numel() for t in ones)
-    assert patch_kernel_work(H, P, 4) == (4 * (read + vectors), 2 * read)
+    n_edges, n_verts, maxval, Pp = 2 * P + 3, P + 2, 4, 128 * -(-P // 128)
+    n = E * E * P + E * n_edges + n_verts
+    tables = 8 * Pp + 2 * n_edges + maxval * n_verts
+    assert patch_kernel_work(H, P, 4, n, tables) == (
+        4 * (read + 2 * n) + 4 * tables, 2 * read)
+    assert patch_kernel_work(H, P, 4, n, tables, nv=2) == (
+        4 * (4 * read + 4 * n) + 4 * tables, 8 * read)

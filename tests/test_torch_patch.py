@@ -1,8 +1,9 @@
 """Port parity of slice 2: the patch-stencil operator path.
 
 Generated unit_box coarse meshes only.  Host set-up code is copied, so the
-patch plans, routing tables and weight slots must be EQUAL to the JAX
-package's.  Assembly, matvecs and solves run in float64 in both packages;
+patch plans, one-hot routing tables and weight slots must be EQUAL to the
+JAX package's; the port's index routing (what the card reads) must give
+exactly what the one-hot products give.  Assembly, matvecs and solves run in float64 in both packages;
 only the order of the floating-point sums differs, so assembled data agree
 to 1e-12 (relative to max|data|), matvecs to 1e-10, a V-cycle to 1e-10 and
 1e-10-rtol GMRES solves to 1e-8.  The port's plain version of kernel B2 is
@@ -85,6 +86,98 @@ def test_patch_tables_and_slots_equal(ns, levels):
         np.testing.assert_array_equal(js, ts)
 
 
+def _onehot_inputs(tab, x):
+    """numpy: the JAX package's one-hot routing of x into face lines and
+    corners, (E, 4, P) and (4, P)."""
+    E, P, ne = tab.E, tab.P, tab.n_edges
+    n_int = E * E * P
+    xe = x[n_int:n_int + E * ne].reshape(E, ne)
+    xef = np.concatenate([xe, xe[::-1]], axis=1)
+    ln = (xef @ tab.G_face.astype(np.float64)).reshape(E, 4, P)
+    cn = (tab.M_cs.astype(np.float64) @ x[n_int + E * ne:]).reshape(4, P)
+    return ln, cn
+
+
+def _onehot_combine(tab, yl, yc):
+    """numpy: the one-hot sums of line and corner partials onto edges and
+    vertices."""
+    E, P = tab.E, tab.P
+    lf = yl[:, :, :P].reshape(E, 4 * P)
+    lfl = np.concatenate([lf, lf[::-1]], axis=1)
+    return (lfl @ tab.G_edge.astype(np.float64),
+            tab.M_vs.astype(np.float64) @ yc[:, :P].reshape(-1))
+
+
+def _rotated_box(gen, ns):
+    """unit_box(ns) with the local frame of every second element rotated a
+    quarter turn (corners, mid-edge nodes and boundary face ids shifted
+    alike; same mesh, same geometry): neighbouring patches then disagree
+    on the direction of their shared edge (``patch_edge_flip``), which a
+    generated box never has."""
+    import dataclasses
+    mesh = gen.unit_box(ns)
+    rot = np.arange(mesh.n_elems) % 2 == 1
+    conn = mesh.conn.copy()
+    conn[rot] = mesh.conn[rot][:, [1, 2, 3, 0, 5, 6, 7, 4, 8]]
+    boundary = {k: dataclasses.replace(
+        b, iface=np.where(rot[b.elem], (b.iface - 1) % 4, b.iface
+                          ).astype(b.iface.dtype))
+        for k, b in mesh.boundary.items()}
+    return dataclasses.replace(mesh, conn=conn, boundary=boundary)
+
+
+@pytest.mark.parametrize("shuffle", [False, True])
+@pytest.mark.parametrize("ns,levels", CASES + [((1, 1), 1), ((130, 1), 1)])
+def test_index_routing_equals_onehot_products(ns, levels, shuffle):
+    """The int32 tables route random vectors exactly as the one-hot
+    matrices do: flipped edges (rotated element frames), boundary edges
+    (one side), P < Pp, and P > 128 (Pp = 256).  The tables read back from
+    the one-hot matrices hold the same sides."""
+    coarse = _rotated_box(tgen, ns) if shuffle else tgen.unit_box(ns)
+    _, plan = tpatches.refine_patched(coarse, levels)
+    tab = tps.build_patch_tables(plan)
+    assert tab.P < tab.Pp and tab.Pp % 128 == 0
+    assert bool(plan.patch_edge_flip.any()) == (shuffle and ns != (1, 1))
+    assert (plan.edge_sides[:, 1, 0] < 0).any()
+    meta = tps.patch_meta(tab)
+    routing = tps.patch_routing(tab, "cpu")
+    rng = np.random.default_rng(13)
+    x = rng.standard_normal(tab.n)
+    xi, ln, cn = tps._patch_inputs(meta, routing, torch.as_tensor(x))
+    ln_ref, cn_ref = _onehot_inputs(tab, x)
+    np.testing.assert_array_equal(ln[:, :, :tab.P].numpy(), ln_ref)
+    np.testing.assert_array_equal(cn[:, :tab.P].numpy(), cn_ref)
+    assert not ln[:, :, tab.P:].any() and not cn[:, tab.P:].any()
+    assert not xi[:, :, tab.P:].any()
+    np.testing.assert_array_equal(
+        xi[:, :, :tab.P].numpy().ravel(), x[:plan.n_int])
+    E, Pp = tab.E, tab.Pp
+    yi = rng.standard_normal((E, E, Pp))
+    yl = rng.standard_normal((E, 4, Pp))
+    yc = rng.standard_normal((4, Pp))
+    y = tps._patch_combine(meta, routing, *map(torch.as_tensor,
+                                               (yi, yl, yc))).numpy()
+    ye_ref, yv_ref = _onehot_combine(tab, yl, yc)
+    np.testing.assert_array_equal(y[:plan.n_int],
+                                  yi[:, :, :tab.P].ravel())
+    n_e = E * tab.n_edges
+    np.testing.assert_array_equal(y[plan.n_int:plan.n_int + n_e],
+                                  ye_ref.ravel())
+    _close(y[plan.n_int + n_e:], yv_ref, 1e-14)
+    # read back from the one-hot matrices: the same tables, sides as sets
+    back = tps.routing_from_onehot(tab.G_face, tab.G_edge, tab.M_cs,
+                                   tab.M_vs, meta)
+    np.testing.assert_array_equal(back[0], tab.face_code)
+    np.testing.assert_array_equal(back[1], tab.corner_vert)
+    np.testing.assert_array_equal(np.sort(back[2], axis=1),
+                                  np.sort(tab.edge_sides, axis=1))
+    np.testing.assert_array_equal(np.sort(back[3], axis=1),
+                                  np.sort(tab.vert_sides, axis=1))
+    for t in (tab.face_code, tab.corner_vert, tab.edge_sides,
+              tab.vert_sides):
+        assert t.dtype == np.int32
+
+
 def test_patched_hierarchy_levels():
     jmm = jml.PatchedMultiLevelMesh(jgen.unit_box((3, 3)), 3)
     tmm = tml.PatchedMultiLevelMesh(tgen.unit_box((3, 3)), 3)
@@ -118,11 +211,14 @@ def _problem(pkg, problem):
             lambda var, x, grp, t: (grp == 1, 0.0))     # clamped at x = 0
 
 
-def _assemblers(problem, ns=(3, 2), levels=2):
+def _assemblers(problem, ns=(3, 2), levels=2, shuffle=False):
     """JAX patch assembler, port patch assembler and port ELL assembler on
-    the same patched fine mesh, with the same Dirichlet rows."""
-    jm, jplan = jpatches.refine_patched(jgen.unit_box(ns), levels)
-    tm, tplan = tpatches.refine_patched(tgen.unit_box(ns), levels)
+    the same patched fine mesh, with the same Dirichlet rows; ``shuffle``:
+    on a coarse mesh with flipped patch faces."""
+    jc, tc = ((_rotated_box(jgen, ns), _rotated_box(tgen, ns)) if shuffle
+              else (jgen.unit_box(ns), tgen.unit_box(ns)))
+    jm, jplan = jpatches.refine_patched(jc, levels)
+    tm, tplan = tpatches.refine_patched(tc, levels)
     names, jform, bc = _problem("jax", problem)
     _, tform, _ = _problem("torch", problem)
     ja = jeng.Assembler(jm, [jeng.Unknown(n) for n in names],
@@ -191,6 +287,11 @@ def test_patch_matvec_matches_jax_and_ell(assembled):
     a = assembled
     jop, top, tell = a["jop"], a["top"], a["tell"]
     assert top.n_rows == tell.n_rows == a["ta"].n_dofs
+    # the operator holds int32 index tables and no one-hot matrix
+    assert all(t.dtype == torch.int32 for t in (
+        top.routing.face_code, top.routing.corner_vert,
+        top.routing.edge_sides, top.routing.vert_sides))
+    assert not hasattr(top, "G_face")
     rng = np.random.default_rng(7)
     for _ in range(3):
         x = rng.standard_normal(top.n_rows)
@@ -200,6 +301,110 @@ def test_patch_matvec_matches_jax_and_ell(assembled):
     _close(top.diagonal().numpy(), jop.diagonal(), 1e-10)
     _close(top.diagonal().numpy(), tell.diagonal().numpy(), 1e-10)
     _close(top.to_dense().numpy(), tell.to_dense().numpy(), 1e-10)
+
+
+@pytest.mark.parametrize("problem", PROBLEMS)
+def test_patch_matvec_with_flipped_faces(problem):
+    """On a coarse mesh whose patch faces run against their edges the
+    plain matvec still equals the JAX package's and the port's own ELL
+    matvec of the same mesh (which knows nothing of patches)."""
+    ja, ta, te = _assemblers(problem, (3, 2), 2, shuffle=True)
+    assert (ta.patch_tab.face_code[:, :ta.patch_tab.P] % 2 == 1).any()
+    u = np.random.default_rng(3).standard_normal(ta.n_dofs)
+    _, jd = ja.make_assemble_fn()(jnp.asarray(u))
+    _, td = ta.make_assemble_fn()(torch.as_tensor(u))
+    _, ed = te.make_assemble_fn()(torch.as_tensor(u))
+    jop, top, tell = ja.op_with(jd), ta.op_with(td), te.op_with(ed)
+    x = np.random.default_rng(8).standard_normal(top.n_rows)
+    y = top @ torch.as_tensor(x)
+    _close(y.numpy(), jop._matvec_xla(jnp.asarray(x)), 1e-10)
+    _close(y.numpy(), (tell @ torch.as_tensor(x)).numpy(), 1e-10)
+    _close(top.diagonal().numpy(), tell.diagonal().numpy(), 1e-10)
+
+
+def _kernel_walk(op, x):
+    """numpy emulation of patch_stencil.cu, address by address: the window
+    value of (patch, lattice position) straight from x through face_code
+    and corner_vert, the 25 products inside the lattice summed over the
+    column variables in order, interior rows into y, line and corner
+    partials into scratch, then the combine through edge_sides and
+    vert_sides."""
+    H, P, Pp, E, ne, nvt, n = op.meta[:7]
+    nv = op.nv
+    fc, cvt = op.routing.face_code.numpy(), op.routing.corner_vert.numpy()
+    es, vs = op.routing.edge_sides.numpy(), op.routing.vert_sides.numpy()
+    wt = op.wt.numpy()
+    n_int = E * E * P
+
+    def window(xv, gi, gj, p):
+        if not (0 <= gi < H and 0 <= gj < H):
+            return 0.0
+        ii, jj = 0 < gi < H - 1, 0 < gj < H - 1
+        if ii and jj:
+            return xv[((gi - 1) * E + gj - 1) * P + p]
+        if ii or jj:
+            f = (0 if gj == 0 else 2) if ii else (1 if gi == H - 1 else 3)
+            r = (gi if ii else gj) - 1
+            code = fc[f, p]
+            if code & 1:
+                r = E - 1 - r
+            return xv[n_int + r * ne + (code >> 1)]
+        c = (0 if gi == 0 else 1) if gj == 0 else (3 if gi == 0 else 2)
+        return xv[n_int + E * ne + cvt[c, p]]
+
+    y = np.full(nv * n, np.nan)
+    yl = np.full((nv, E, 4, Pp), np.nan)
+    yc = np.full((nv, 4, Pp), np.nan)
+    for vr in range(nv):
+        for p in range(P):
+            for i in range(H):
+                for j in range(H):
+                    acc = 0.0
+                    for vc in range(nv):
+                        xv = x[vc * n:(vc + 1) * n]
+                        for k in range(25):
+                            a, b = i + k // 5 - 2, j + k % 5 - 2
+                            if 0 <= a < H and 0 <= b < H:
+                                acc += wt[(vr * nv + vc) * 25 + k, i, j, p] \
+                                    * window(xv, a, b, p)
+                    ii, jj = 0 < i < H - 1, 0 < j < H - 1
+                    if ii and jj:
+                        y[vr * n + ((i - 1) * E + j - 1) * P + p] = acc
+                    elif ii or jj:
+                        f = (0 if j == 0 else 2) if ii \
+                            else (1 if i == H - 1 else 3)
+                        yl[vr, (i if ii else j) - 1, f, p] = acc
+                    else:
+                        c = (0 if i == 0 else 1) if j == 0 \
+                            else (3 if i == 0 else 2)
+                        yc[vr, c, p] = acc
+        for t in range(E * ne + nvt):
+            acc = 0.0
+            if t < E * ne:
+                r, e = divmod(t, ne)
+                for code in es[e]:
+                    if code >= 0:
+                        rr = E - 1 - r if code & 1 else r
+                        acc += yl[vr, rr, (code >> 1) & 3, code >> 3]
+            else:
+                for code in vs[t - E * ne]:
+                    if code >= 0:
+                        acc += yc[vr, code & 3, code >> 2]
+            y[vr * n + n_int + t] = acc
+    return y
+
+
+@pytest.mark.parametrize("problem", PROBLEMS)
+@pytest.mark.parametrize("shuffle", [False, True])
+def test_kernel_walk_matches_plain(problem, shuffle):
+    """The addresses the CUDA kernel computes (emulated in numpy from the
+    int32 tables) give the plain matvec, with and without flipped faces."""
+    _, ta, _ = _assemblers(problem, (3, 2), 1, shuffle=shuffle)
+    u = np.random.default_rng(3).standard_normal(ta.n_dofs)
+    _, td = ta.make_assemble_fn()(torch.as_tensor(u))
+    top = ta.op_with(td)
+    x = np.random.default_rng(9).standard_normal(top.n_rows)
+    _close(_kernel_walk(top, x), (top @ torch.as_tensor(x)).numpy(), 1e-12)
 
 
 @pytest.mark.parametrize("ns,levels", [((3, 2), 2), ((4, 3), 1)])
@@ -227,8 +432,7 @@ def test_plain_kernel_matches_pallas_interpret(problem, ns, levels,
         xs = x[vc * nb:(vc + 1) * nb]
         j_in = jps._patch_inputs(meta7, jop.G_face, jop.M_cs,
                                  jnp.asarray(xs))
-        t_in = tps._patch_inputs(meta7, top.G_face, top.M_cs,
-                                 torch.as_tensor(xs))
+        t_in = tps._patch_inputs(meta7, top.routing, torch.as_tensor(xs))
         for jv, tv in zip(j_in, t_in):
             np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
         for vr in range(nv):

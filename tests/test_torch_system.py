@@ -121,7 +121,12 @@ def test_state_carried_from_jax(slice_runs):
 
 def test_routing_puts_fine_level_on_bell(slice_runs):
     routing = slice_runs["ts"].solver_info()["routing"]
-    assert {"n_rows": 2946, "path": "bell", "order": "identity"} in routing
+    note = next(r for r in routing if r["n_rows"] == 2946)
+    assert (note["path"], note["order"], note["kernel"]) == (
+        "bell", "identity", "bell_spmv")
+    # the fill of the card's sliced-ELL layout is reported per level
+    from femus_tpu_torch.algebra.bell import SELL_SIGMA
+    assert note["sigma"] == SELL_SIGMA and 1.0 <= note["fill"] < 1.5
     # the coarsest level is LU-solved: no matvec of it runs on BELL or ELL
     assert any(r["n_rows"] == 770 and r["path"] == "lu" for r in routing)
     assert not any(r["n_rows"] == 770 and r["path"] != "lu" for r in routing)
