@@ -2,7 +2,8 @@
 
     python3 chip_smoke.py            # the slice configurations
     python3 chip_smoke.py --profile  # plus a profiled Newton step, patch
-                                     # solve step and lattice CG solve
+                                     # solve step, lattice CG solve and
+                                     # FSI Newton step
 
 Phases, one JSON line each; any failure exits non-zero.  Slice 1, the
 steady Navier-Stokes Newton step on the BELL-frame operator:
@@ -89,6 +90,41 @@ poisson-patch-1M) and the solver routes beside the V-cycle:
                      K (K through FGMRES) and with operator="matrix_free"
                      must converge and agree with the V-cycle solve.
 
+Slice 5, monolithic ALE fluid-structure interaction on the BELL-frame
+operator (kernel B1), with the Petrov-Galerkin R A P hierarchy and
+material-split Vanka (see ``fsi_system``):
+
+15. fsi_setup     — System.init of fsi-bed-128: unit_box((16,16)) refined
+                    to 4 levels, finest 128x128, dx, dy, u, v Q2 and p P1dc
+                    (313,348 dofs), an elastic bed in the bottom quarter;
+                    host seconds, dofs, nnz and row lengths per level,
+                    R A P schedule sizes;
+16. fsi_kernel    — B1 on the FSI fine Jacobian at the initial state, in the
+                    solve's own plan: against its plain version with float64
+                    values (the solve's) and float32 ones, and on random
+                    float64 data; cold time, HBM bound, CSR time in the same
+                    types, fill;
+17. fsi_main      — NonLinearImplicitSystem.solve in float64 (FSI_DTYPE; F
+                    ratchet over the four levels, K-cycle FGMRES, linear
+                    rtol 1e-4, up to 8 Newton steps per level, the pressure
+                    pinned in the fluid, nu 0.05, lid 0.2): seconds, FGMRES
+                    iterations and ||R(u)|| per step, B1 launches, peak
+                    device bytes, max |u| in the fluid and max |dx| on the
+                    interface; gates:
+                    ||R(u)|| on the finest level falls at least 10^3x,
+                    every linear solve meets its rtol, B1 launched, finite
+                    state;
+   (--profile: one more finest-level Newton step, one FGMRES cycle, under
+    torch.profiler);
+18. fsi_transient — fsi-bed-transient-64 (the same geometry at 3 levels,
+                    78,852 dofs, the bed kicked horizontally, dt = 0.01):
+                    3 x TransientMonolithicFSI.time_step(); gates: every
+                    level's Newton loop converges, the solid's mean u
+                    changes between steps, finite state;
+19. fsi_reference — steady FSI (lid 0.02) and 2 transient steps on
+                    unit_box((4,4)), 2 levels: the card (FSI_DTYPE) against
+                    the host (float64), every field to 1e-3 relative.
+
 Then the card's name and power limit, the kernel table as one JSON line,
 and the final status line.
 """
@@ -106,6 +142,7 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (NVIDIA data sheet)
 F32_FLOPS_PER_S = 67e12          # H100 SXM float32, outside the tensor cores
+F64_FLOPS_PER_S = 34e12          # H100 SXM float64, outside the tensor cores
 # the slice configurations: coarsest mesh cells per side, mesh levels
 COARSE_CELLS = 16                 # cavity-128
 LEVELS = 4
@@ -127,6 +164,31 @@ PATCH_ERR_MAX = 2.5e-2
 # and 16-179x (elasticity, up to 300x in other runs); a solve that stopped
 # with no iteration sits at 1e6x
 RESIDUAL_SLACK = {"patch_main": 100.0, "patch_elasticity": 1000.0}
+# fsi-bed-128 (steady) and fsi-bed-transient-64: coarsest cells per side,
+# mesh levels of each; the bed is the elements whose centroid has y < 0.25
+FSI_COARSE, FSI_LEVELS, FSI_TRANSIENT_LEVELS = 16, 4, 3
+FSI_FIELDS = ("dx", "dy", "u", "v", "p")
+FSI_BED = 0.25
+# the lid speed and viscosity of the steady case: the JAX package's Newton
+# at 3 levels on the host needs more than 8 steps (it diverges) at nu 0.01
+# and lid 1, so nu 0.05, lid 0.2 (PERF.md, section 4)
+FSI_NU, FSI_LID = 0.05, 0.2
+FSI_KICK, FSI_DT, FSI_TRANSIENT_STEPS = 0.5, 0.01, 3
+# the pressure is pinned at the value dof of the last element (top right,
+# in the fluid on every level): inside the solid, where p = 0 holds
+# anyway, a pin leaves the fluid pressure's level free and the Newton
+# iteration wanders
+FSI_PIN = -3
+# the FSI phases solve in float64: in float32 the K-cycle FGMRES's true
+# residual stalls far above its estimate, the Newton corrections floor
+# near 1e-5 and a Vanka block of the small reference case factors with an
+# exact zero pivot (PERF.md, section 6; tools/torch_fsi_precision.py)
+FSI_DTYPE = torch.float64
+# relative Newton correction at which a level's loop stops
+FSI_NONLINEAR_TOL = 1e-5
+# FGMRES(60) restarts per linear solve: the finest fsi-bed-128 level needs
+# 800-1,800 iterations for rtol 1e-4
+FSI_MAX_OUTER = 40
 
 
 # the measured keys of a row of the final kernel table
@@ -303,9 +365,12 @@ def phase_build(card: str):
           "ptxas": report})
 
 
-def phase_kernel(sys_) -> dict:
-    """B1 against its plain version on the main path's fine operator, in
-    the device plan the solve itself uses."""
+def phase_kernel(sys_, phase: str = "kernel",
+                 dtypes=(("f32", torch.float32),
+                         ("bf16", torch.bfloat16))) -> dict:
+    """B1 against its plain version on a main path's fine operator at its
+    initial state, in the device plan the solve itself uses: values in each
+    of ``dtypes`` from the assembly, float64 on random data."""
     from femus_tpu_torch.algebra import bell
 
     a = sys_.assemblers[-1]
@@ -335,44 +400,62 @@ def phase_kernel(sys_) -> dict:
                     bell.spmv_bell_cuda(op, xv), y_k))}
 
     rows = {}
-    for name, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+    valid = torch.as_tensor(a.pattern.valid, device="cuda")
+    cols = torch.as_tensor(a.pattern.cols, dtype=torch.int64, device="cuda")
+    counts = valid.sum(dim=1)
+    crow = torch.cat([counts.new_zeros(1), counts.cumsum(0)])
+    for name, dt in dtypes:
         op = bell.relayout_ell(dev, data, dtype=dt, device="cuda")
-        row = held(op, x, 1e-5)
-        isz = op.vals.element_size()
+        # float64 values multiply a float64 x (the FSI solve's own types)
+        xv = x.double() if dt == torch.float64 else x
+        row = held(op, xv, 1e-12 if dt == torch.float64 else 1e-5)
+        isz, xsz = op.vals.element_size(), xv.element_size()
         # what the kernel reads and writes: values, int32 columns, slice
         # pointers, the row order, x and y, each once
         nbytes = (dev.total * (isz + 4) + (dev.n_slices + 1) * 4
-                  + dev.n_slices * 32 * 4 + 2 * n * 4)
+                  + dev.n_slices * 32 * 4 + 2 * n * xsz)
         flops = 2 * dev.total
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = flops / F32_FLOPS_PER_S * 1e3
+        t_ops = flops / (F64_FLOPS_PER_S if dt == torch.float64
+                         else F32_FLOPS_PER_S) * 1e3
         # what the matvec itself needs: each nonzero's value and int32
         # column id, x and y once; the bound above also counts the fill
-        nnz_bytes = nnz * (isz + 4) + 2 * n * 4
+        nnz_bytes = nnz * (isz + 4) + 2 * n * xsz
         t_nnz = nnz_bytes / HBM_BYTES_PER_S * 1e3
         # the operator (52 MB in float32) is about the size of the L2 and
         # a call is shorter than its Python wrapper on a slow host: the
         # reported time is the cold one, in turns (kernel, plain, kernel)
-        first_ms = time_cold_ms(lambda: bell.spmv_bell_cuda(op, x))
-        plain_ms = time_ms(lambda: bell._matvec_plain_frame(op, x), reps=30)
-        ms = time_cold_ms(lambda: bell.spmv_bell_cuda(op, x))
+        first_ms = time_cold_ms(lambda: bell.spmv_bell_cuda(op, xv))
+        plain_ms = time_ms(lambda: bell._matvec_plain_frame(op, xv),
+                           reps=30)
+        ms = time_cold_ms(lambda: bell.spmv_bell_cuda(op, xv))
         row.update({"ms": ms, "first_ms": first_ms, "plain_ms": plain_ms,
                     "back_to_back_ms": time_ms(
-                        lambda: bell.spmv_bell_cuda(op, x)),
+                        lambda: bell.spmv_bell_cuda(op, xv)),
                     "bytes": nbytes,
-                    "operator_bytes": nbytes - 2 * n * 4,
+                    "operator_bytes": nbytes - 2 * n * xsz,
                     "bound_ms": max(t_bytes, t_ops),
                     "bound_by": "bytes" if t_bytes >= t_ops
                     else "operations",
                     "pct_of_bound": 100.0 * max(t_bytes, t_ops) / ms,
                     "nnz_bytes": nnz_bytes, "bound_nnz_ms": t_nnz,
                     "pct_of_nnz_bound": 100.0 * t_nnz / ms})
+        if dt in (torch.float32, torch.float64):
+            # library yardstick: one torch.sparse CSR matvec of the same
+            # matrix in the same types
+            csr = torch.sparse_csr_tensor(crow, cols[valid],
+                                          data.to(dt)[valid],
+                                          check_invariants=False,
+                                          size=(n, n))
+            if dev.perm is None:
+                row["library_err"] = float(
+                    (csr @ xv - bell.spmv_bell_cuda(op, xv)).abs().max())
+            row["library_ms"] = time_cold_ms(lambda: csr @ xv)
+            row["library_back_to_back_ms"] = time_ms(lambda: csr @ xv)
+            del csr
         rows[name] = row
-        if name == "f32":
-            y_f32 = bell.spmv_bell_cuda(op, x)
         del op
     # float64 values and x on seeded random data in the same pattern
-    valid = torch.as_tensor(a.pattern.valid, device="cuda")
     rnd = torch.randn(valid.shape, generator=gen, dtype=torch.float64
                       ).cuda() * valid
     op64 = bell.relayout_ell(dev, rnd, device="cuda")
@@ -380,21 +463,11 @@ def phase_kernel(sys_) -> dict:
         op64, torch.randn(n, generator=gen, dtype=torch.float64).cuda(),
         1e-12)
     del op64, rnd
-    # library yardstick: one torch.sparse CSR matvec of the same matrix
-    cols = torch.as_tensor(a.pattern.cols, dtype=torch.int64, device="cuda")
-    counts = valid.sum(dim=1)
-    crow = torch.cat([counts.new_zeros(1), counts.cumsum(0)])
-    csr = torch.sparse_csr_tensor(crow, cols[valid], data.float()[valid],
-                                  check_invariants=False, size=(n, n))
-    if dev.perm is None:
-        rows["f32"]["library_err"] = float((csr @ x - y_f32).abs().max())
-    rows["f32"]["library_ms"] = time_cold_ms(lambda: csr @ x)
-    rows["f32"]["library_back_to_back_ms"] = time_ms(lambda: csr @ x)
     out.update(rows)
-    emit({"phase": "kernel", **out})
+    emit({"phase": phase, **out})
     if not all(r["ok"] and r["repeats_bit_for_bit"] for r in rows.values()):
         raise AssertionError("B1 disagrees with its plain version")
-    return rows["f32"]
+    return {**rows[dtypes[0][0]], "fill": dev.fill, "n": n, "nnz": nnz}
 
 
 def phase_main(sys_, ml_sol) -> int:
@@ -1150,6 +1223,292 @@ def phase_cycles_reference() -> None:
                                  f"{rep[name]}")
 
 
+def fsi_system(coarse: int, levels: int, device, dtype, rtol: float,
+               max_nonlinear: int, transient: bool = False,
+               lid: float = None, **config):
+    """fsi-bed through the port's public entry points: an elastic bed
+    (element centroid y < FSI_BED, element group 1) under a fluid, dx, dy,
+    u, v biquadratic and p disc_linear, pairs u->dx and v->dy, neo-Hookean
+    lam = mu = 50, the pressure pinned at FSI_PIN.  Steady: lid-driven
+    (u = FSI_LID on the top wall, group 4; ``lid`` overrides it),
+    fsi_steady_form with nu = FSI_NU.  ``transient``: everything clamped,
+    the bed kicked horizontally (FSI_KICK), fsi_transient_form with
+    rho_f = rho_s = 1, nu = 0.05, theta = 1, dt = FSI_DT, through
+    TransientMonolithicFSI.  Solver: operator="bell", interleaved dofs,
+    material-split Vanka (2 elements per block), F ratchet, K-cycle FGMRES
+    (restart 60, FSI_MAX_OUTER restarts); ``config`` overrides fields of
+    its SolverConfig."""
+    from femus_tpu_torch.mesh.generation import unit_box
+    from femus_tpu_torch.mesh.multilevel import MultiLevelMesh
+    from femus_tpu_torch.systems.fsi import (MonolithicFSISystem,
+                                             TransientMonolithicFSI,
+                                             fsi_steady_form,
+                                             fsi_transient_form)
+    from femus_tpu_torch.systems.problem import MultiLevelProblem
+    from femus_tpu_torch.systems.solution import MultiLevelSolution
+
+    mesh = unit_box((coarse, coarse), "quad")
+    cent = mesh.coords[mesh.conn].mean(axis=1)
+    mesh.elem_group = np.where(cent[:, 1] < FSI_BED, 1, 0).astype(np.int32)
+    ml_mesh = MultiLevelMesh(mesh, levels)
+    ml_sol = MultiLevelSolution(ml_mesh)
+    for v in ("dx", "dy", "u", "v"):
+        ml_sol.add_solution(v, "biquadratic", time_order=int(transient))
+    ml_sol.add_solution("p", "disc_linear")
+
+    def bc(var, x, grp, t):
+        if var == "p":
+            return (False, 0.0)
+        if var == "u" and grp == 4 and not transient:
+            return (True, FSI_LID if lid is None else lid)   # moving lid
+        return (True, 0.0)                        # clamped, no-slip
+
+    ml_sol.attach_bc(bc)
+    for v in FSI_FIELDS:
+        ml_sol.initialize(v)
+    if transient:
+        ml_sol.initialize("u", lambda x: np.where(
+            x[:, 1] < FSI_BED, FSI_KICK * np.sin(np.pi * x[:, 0])
+            * np.sin(np.pi * x[:, 1] / FSI_BED), 0.0))
+    ml_sol.generate_bdc()
+    ml_sol.fix_solution_at_point("p", FSI_PIN, 0.0)
+    ml_sol.pair_solution("u", "dx")
+    ml_sol.pair_solution("v", "dy")
+    prob = MultiLevelProblem(ml_mesh, ml_sol, quad_order="fifth")
+    if transient:
+        sys_ = prob.add_system(TransientMonolithicFSI, "FSI")
+        form = fsi_transient_form(
+            ("dx", "dy"), ("u", "v"), "p", solid_groups=(1,),
+            pres_family="disc_linear", rho_f=1.0, nu=0.05, rho_s=1.0,
+            lam=50.0, mu=50.0, solid_model="neo-hookean", theta=1.0)
+    else:
+        sys_ = prob.add_system(MonolithicFSISystem, "FSI")
+        form = fsi_steady_form(
+            ("dx", "dy"), ("u", "v"), "p", solid_groups=(1,),
+            pres_family="disc_linear", nu=FSI_NU, lam=50.0, mu=50.0,
+            solid_model="neo-hookean")
+    sys_.solid_groups = (1,)
+    sys_.add_unknown(*FSI_FIELDS)
+    sys_.set_assembly(form)
+    cfg = sys_.config
+    cfg.operator = "bell"
+    cfg.interleave_dofs = True
+    cfg.smoother = "vanka"
+    cfg.vanka_groups = "material"
+    cfg.vanka_block_elems = 2
+    cfg.mg_type = "F"
+    cfg.mg_cycle = "K"
+    cfg.restart = 60
+    cfg.max_outer = FSI_MAX_OUTER
+    cfg.rtol = rtol
+    cfg.max_nonlinear = max_nonlinear
+    cfg.nonlinear_tol = FSI_NONLINEAR_TOL
+    for key, value in config.items():
+        if not hasattr(cfg, key):
+            raise AttributeError(f"SolverConfig has no field {key!r}")
+        setattr(cfg, key, value)
+    if transient:
+        sys_.init_time(FSI_DT)
+    sys_.init(device=device, dtype=dtype)
+    return sys_, ml_sol
+
+
+def _levels_converged(sys_) -> bool:
+    """Every level's Newton loop of the last solve ended below its
+    nonlinear tolerance, and every linear solve met its rtol."""
+    last = {}
+    for h in sys_.history:
+        last[h["level"]] = h
+    return (all(max(h["eps"].values()) < sys_.config.nonlinear_tol
+                for h in last.values())
+            and all(h["converged"] for h in sys_.history))
+
+
+def _res_norm(sys_) -> float:
+    """||R(u)|| at the finest level's current state (one more assembly)."""
+    a = sys_.assemblers[-1]
+    u = torch.as_tensor(sys_.gather(-1), dtype=sys_.dtype, device=sys_.device)
+    R, _ = a.make_assemble_fn(with_jacobian=False, pass_tables=True)(
+        u, a.device_tables_cached(), sys_.aux_scalars, sys_._aux_arrays(-1))
+    return float(torch.linalg.norm(R))
+
+
+def phase_fsi_setup() -> tuple:
+    t0 = time.perf_counter()
+    sys_, ml_sol = fsi_system(FSI_COARSE, FSI_LEVELS, "cuda", FSI_DTYPE,
+                              rtol=1e-4, max_nonlinear=8)
+    setup_s = time.perf_counter() - t0
+    levels = []
+    for a, tr in zip(sys_.assemblers, sys_.transfers + [None]):
+        lv = {"n_dofs": a.n_dofs, "nnz": int(a.pattern.nnz),
+              "row_min": int(a.pattern.valid.sum(axis=1).min()),
+              "row_max": int(a.pattern.valid.sum(axis=1).max())}
+        if tr is not None:
+            lv["rap_coarse_rows"] = tr[2].coarse_pattern.n_rows
+            lv["rap_coarse_nnz"] = int(tr[2].coarse_pattern.nnz)
+            lv["rap_triplets"] = int(tr[2].src.numel())
+        levels.append(lv)
+    emit({"phase": "fsi_setup", "seconds": setup_s,
+          "n_dofs": sys_.assemblers[-1].n_dofs, "levels": levels,
+          "restriction": "R A P (Petrov-Galerkin, pairs u->dx, v->dy)"})
+    return sys_, ml_sol, setup_s
+
+
+def _fsi_observables(sys_, ml_sol) -> dict:
+    """max |u| in the fluid and max |dx| on the interface y = FSI_BED."""
+    mesh = sys_.ml_mesh.levels[-1]
+    xy = mesh.coords[mesh.dofmap("biquadratic").nodes]
+    sol = ml_sol.sol[-1]
+    fluid = xy[:, 1] > FSI_BED + 1e-9
+    iface = np.isclose(xy[:, 1], FSI_BED)
+    return {"max_u_fluid": float(np.abs(sol["u"][fluid]).max()),
+            "max_dx_interface": float(np.abs(sol["dx"][iface]).max())}
+
+
+def phase_fsi_main(sys_, ml_sol, setup_s: float) -> dict:
+    """NonLinearImplicitSystem.solve on fsi-bed-128, with the launch
+    counts set to 0 just before it and read just after."""
+    from femus_tpu_torch.systems.system import launch_counts
+
+    res0 = _res_norm(sys_)               # the finest level's initial state
+    reset_launches()
+    _flush_buffer.clear()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sys_.solve()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    hist = sys_.history
+    for h in hist:
+        emit({"phase": "fsi_newton_step", "level": h["level"],
+              "it": h["newton_it"], "seconds": h["seconds"],
+              "fgmres_iters": h["lin_iters"], "lin_res": h["lin_res"],
+              "lin_target": h["lin_target"], "converged": h["converged"],
+              "res_norm": h["res_norm"],
+              "kernel_launches": h["kernel_launches"], "eps": h["eps"]})
+    fine = [h for h in hist if h["level"] == len(sys_.assemblers) - 1]
+    final_res = _res_norm(sys_)
+    drop = res0 / max(final_res, 1e-300)
+    fields_ok = all(np.all(np.isfinite(ml_sol.sol[l][n]))
+                    for l in range(len(ml_sol.sol)) for n in FSI_FIELDS)
+    rep = {"phase": "fsi_main", "wall_s": wall, "setup_s": setup_s,
+           "newton_steps": len(hist), "fine_newton_steps": len(fine),
+           "fine_step_seconds": [h["seconds"] for h in fine],
+           "fine_first_step_s": fine[0]["seconds"],
+           "fine_steady_step_s": (float(np.mean([h["seconds"]
+                                                 for h in fine[1:]]))
+                                  if len(fine) > 1 else None),
+           "fine_fgmres_iters": [h["lin_iters"] for h in fine],
+           "fine_res_norm": [h["res_norm"] for h in fine],
+           "initial_res_norm": res0, "final_res_norm": final_res,
+           "res_norm_drop": drop,
+           "kernel_launches": launches,
+           "all_converged": _levels_converged(sys_),
+           "linear_solves_converged": all(h["converged"] for h in hist),
+           "tensors_on_cuda": _all_on_cuda(sys_), "fields_finite": fields_ok,
+           "peak_device_bytes": peak,
+           "n_dofs": [a.n_dofs for a in sys_.assemblers],
+           **_fsi_observables(sys_, ml_sol),
+           "routing": sys_.solver_info()["routing"]}
+    emit(rep)
+    if not rep["linear_solves_converged"]:
+        raise AssertionError("fsi_main: a linear solve missed its rtol")
+    if not drop >= 1e3:
+        raise AssertionError(f"fsi_main: ||R(u)|| fell only {drop:.3g}x")
+    if launches["bell_spmv"] <= 0:
+        raise AssertionError("fsi_main: the solve launched no B1")
+    if not (fields_ok and rep["tensors_on_cuda"]):
+        raise AssertionError("fsi_main: tensors off the card or non-finite "
+                             "fields")
+    return rep
+
+
+def phase_fsi_transient() -> dict:
+    """fsi-bed-transient-64: FSI_TRANSIENT_STEPS x time_step()."""
+    from femus_tpu_torch.systems.system import launch_counts
+
+    t0 = time.perf_counter()
+    sys_, ml_sol = fsi_system(FSI_COARSE, FSI_TRANSIENT_LEVELS, "cuda",
+                              FSI_DTYPE, rtol=1e-4, max_nonlinear=8,
+                              transient=True)
+    setup_s = time.perf_counter() - t0
+    solid = ml_sol.ml_mesh.levels[-1].elem_group == 1
+    bed = np.unique(ml_sol.ml_mesh.levels[-1].dofmap("biquadratic")
+                    .conn[solid])
+    reset_launches()
+    steps, means = [], []
+    for k in range(FSI_TRANSIENT_STEPS):
+        t0 = time.perf_counter()
+        sys_.time_step()
+        torch.cuda.synchronize()
+        fine = [h for h in sys_.history
+                if h["level"] == len(sys_.assemblers) - 1]
+        means.append(float(ml_sol.sol[-1]["u"][bed].mean()))
+        steps.append({"time": sys_.time,
+                      "seconds": time.perf_counter() - t0,
+                      "newton_steps": len(sys_.history),
+                      "fine_newton_steps": len(fine),
+                      "fine_res_norm": [h["res_norm"] for h in fine],
+                      "fine_fgmres_iters": [h["lin_iters"] for h in fine],
+                      "converged": _levels_converged(sys_),
+                      "solid_mean_u": means[-1]})
+    launches = launch_counts()
+    finite = all(np.all(np.isfinite(ml_sol.sol[l][n]))
+                 for l in range(len(ml_sol.sol)) for n in FSI_FIELDS)
+    rep = {"phase": "fsi_transient", "setup_s": setup_s,
+           "n_dofs": [a.n_dofs for a in sys_.assemblers], "dt": FSI_DT,
+           "steps": steps, "kernel_launches": launches,
+           "fields_finite": finite,
+           "routing": sys_.solver_info()["routing"]}
+    emit(rep)
+    if not all(st["converged"] for st in steps):
+        raise AssertionError("fsi_transient: a time step's Newton solve "
+                             "did not converge")
+    if not all(abs(b - a) > 1e-9 for a, b in zip(means, means[1:])):
+        raise AssertionError(f"fsi_transient: the solid stands still {means}")
+    if not finite:
+        raise AssertionError("fsi_transient: non-finite fields")
+    if launches["bell_spmv"] <= 0:
+        raise AssertionError("fsi_transient: no B1 launch")
+    return rep
+
+
+def phase_fsi_reference() -> None:
+    """Steady FSI (pairs, material Vanka, MG) and two transient steps on
+    unit_box((4,4)), 2 levels: the card's float32 against the host's
+    float64, every field."""
+    rep = {"phase": "fsi_reference"}
+    for case in ("steady", "transient"):
+        fields = {}
+        for device, dtype in (("cuda", FSI_DTYPE), ("cpu", torch.float64)):
+            # at lid 0.2 the 8x8 Newton from the 4x4 solution wanders
+            # (host, float64); at 0.02 it converges
+            sys_, ml_sol = fsi_system(4, 2, device, dtype, rtol=1e-6,
+                                      max_nonlinear=8,
+                                      transient=case == "transient",
+                                      lid=0.02)
+            if case == "steady":
+                sys_.solve()
+            else:
+                for _ in range(2):
+                    sys_.time_step()
+            fields[device] = {n: ml_sol.sol[-1][n].copy()
+                              for n in FSI_FIELDS}
+        rep[case] = {n: float(np.linalg.norm(fields["cuda"][n]
+                                              - fields["cpu"][n])
+                              / max(np.linalg.norm(fields["cpu"][n]),
+                                    1e-300))
+                     for n in FSI_FIELDS}
+    rep["n_dofs"] = int(sum(v.size for v in fields["cpu"].values()))
+    emit(rep)
+    worst = max(v for case in ("steady", "transient")
+                for v in rep[case].values())
+    if not worst < 1e-3:
+        raise AssertionError(f"card and host FSI solutions differ: {rep}")
+
+
 def card_line() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1161,8 +1520,8 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", action="store_true",
                     help="also profile one Newton step, one patch solve "
-                         "step and one lattice CG solve (device time by "
-                         "kernel, idle share)")
+                         "step, one lattice CG solve and one FSI Newton "
+                         "step (device time by kernel, idle share)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1220,6 +1579,21 @@ def main() -> int:
         del ops
         phase_lattice_reference()
         phase_cycles_reference()
+        # slice 5: monolithic FSI on the BELL-frame operator, steady and
+        # transient
+        fsys, fsol, fsetup = phase_fsi_setup()
+        # the FSI solve multiplies in float64 (FSI_DTYPE): that row first
+        kf = phase_kernel(fsys, "fsi_kernel", (("f64", torch.float64),
+                                               ("f32", torch.float32)))
+        fmain = phase_fsi_main(fsys, fsol, fsetup)
+        if args.profile:
+            # one FGMRES cycle (60 iterations) keeps the trace short
+            fsys.config.max_outer = 1
+            phase_profile(fsys, torch.as_tensor(
+                fsys.gather(-1), dtype=fsys.dtype, device="cuda"), "FSI")
+        del fsys, fsol
+        ftr = phase_fsi_transient()
+        phase_fsi_reference()
     except Exception:
         traceback.print_exc()
         return 1
@@ -1230,7 +1604,13 @@ def main() -> int:
         "replaces": "femus_tpu/algebra/bell.py:603",
         "launches": launches, "max_abs_err": k["max_abs_err"],
         "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
-        "bound_by": k["bound_by"], "library_ms": k["library_ms"]}, {
+        "bound_by": k["bound_by"], "library_ms": k["library_ms"],
+        # the same kernel on the FSI Jacobian (fsi-bed-128), main path and
+        # transient drive
+        "fsi_launches": fmain["kernel_launches"]["bell_spmv"],
+        "fsi_transient_launches": ftr["kernel_launches"]["bell_spmv"],
+        "fsi_values": "f64",
+        **{"fsi_" + key: kf[key] for key in KERNEL_KEYS + ("fill",)}}, {
         "name": "patch_stencil", "route": "cuda",
         "source": "femus_tpu_torch/algebra/csrc/patch_stencil.cu",
         "replaces": "femus_tpu/algebra/patchstencil.py:377",

@@ -5,12 +5,14 @@
 - Galerkin triple product A_c = P^T A_f P as a precomputed linear
   schedule: with both patterns static, every coarse nnz is a fixed linear
   combination of fine nnz values, so the device-side PtAP is one gather +
-  multiply + per-segment sum.
+  multiply + per-segment sum; with an explicit restriction R (the
+  monolithic-FSI Petrov-Galerkin pairing) the same schedule computes the
+  non-symmetric R A_f P.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import scipy.sparse as sp
@@ -161,6 +163,80 @@ def build_ptap_schedule(fine_pattern: EllPattern, P: sp.csr_matrix,
                         torch.as_tensor(cpat.valid, device=device))
 
 
+def fsi_restriction_transpose(coarse_mesh, fine_mesh, unknowns,
+                              pairs: Dict[str, str],
+                              solid_groups: Sequence[int],
+                              mark_family: str = "biquadratic"
+                              ) -> sp.csr_matrix:
+    """Petrov-Galerkin restriction transpose R^T for monolithic FSI
+    (reference ``MonolithicFSINonLinearImplicitSystem::
+    Build_RestrictionTranspose_OneElement_OneFEFamily_With_Pair_In_System``).
+
+    Built like the prolongation, except that entries which CROSS the
+    fluid/solid interface (fine dof solid-mark != coarse node solid-mark)
+    move into the column block of the variable's pair (``pairs``, e.g.
+    u -> dx) with the same weight, or are dropped when the variable is its
+    own pair.  Coarse operators are then R A P and the cycle restricts
+    residuals with R instead of P^T.
+
+    - node solid mark = 1 iff the node touches a solid element;
+    - a FINE dof is solid iff its interpolated coarse mark lies in
+      (0.99, 1.01);
+    - only ``mark_family`` carries marks: other families (pressure
+      included) keep the plain prolongation block.
+
+    Returns R^T (n_fine x n_coarse, block layout of ``unknowns``)."""
+    def node_marks(mesh):
+        mark = np.zeros(mesh.coords.shape[0], bool)
+        sel = np.isin(np.asarray(mesh.elem_group), list(solid_groups))
+        if sel.any():
+            mark[np.unique(np.asarray(mesh.conn)[sel].ravel())] = True
+        return mark
+
+    mc_node = node_marks(coarse_mesh)
+    P_fam: Dict[str, sp.csr_matrix] = {}
+    row_off = np.cumsum([0] + [fine_mesh.dofmap(u.family).n_dofs
+                               for u in unknowns])
+    col_off = np.cumsum([0] + [coarse_mesh.dofmap(u.family).n_dofs
+                               for u in unknowns])
+    col_block = {u.name: i for i, u in enumerate(unknowns)}
+    rows_all, cols_all, vals_all = [], [], []
+    for k, u in enumerate(unknowns):
+        if u.family not in P_fam:
+            P_fam[u.family] = prolongation_scipy(coarse_mesh, fine_mesh,
+                                                 u.family)
+        Pk = P_fam[u.family].tocoo()
+        pair = pairs.get(u.name, u.name)
+        if u.family != mark_family:
+            rows_all.append(Pk.row + row_off[k])
+            cols_all.append(Pk.col + col_off[k])
+            vals_all.append(Pk.data)
+            continue
+        dmc = coarse_mesh.dofmap(u.family)
+        m_c = mc_node[dmc.nodes].astype(np.float64)
+        v_f = np.asarray(P_fam[u.family] @ m_c)
+        isolid_f = np.abs(v_f - 1.0) < 0.01
+        route = isolid_f[Pk.row] != (m_c[Pk.col] > 0.5)
+        # same-side entries stay in this variable's column block
+        rows_all.append(Pk.row[~route] + row_off[k])
+        cols_all.append(Pk.col[~route] + col_off[k])
+        vals_all.append(Pk.data[~route])
+        if pair != u.name:
+            # interface-crossing entries go to the pair's column block
+            kp = col_block[pair]
+            rows_all.append(Pk.row[route] + row_off[k])
+            cols_all.append(Pk.col[route] + col_off[kp])
+            vals_all.append(Pk.data[route])
+        # self-paired (dx, dy): crossing entries are dropped
+    RRt = sp.csr_matrix((np.concatenate(vals_all),
+                         (np.concatenate(rows_all),
+                          np.concatenate(cols_all))),
+                        shape=(int(row_off[-1]), int(col_off[-1])))
+    RRt.sum_duplicates()
+    RRt.sort_indices()
+    return RRt
+
+
 def mask_prolongation(P: sp.spmatrix, row_mask, col_mask) -> sp.csr_matrix:
     """Zero the masked (essential/Dirichlet) rows and columns of a transfer
     operator (CSR diagonal scaling)."""
@@ -174,7 +250,8 @@ def mask_prolongation(P: sp.spmatrix, row_mask, col_mask) -> sp.csr_matrix:
 def op_pair_from_scipy(P: sp.csr_matrix, dtype=torch.float64,
                        R: Optional[sp.spmatrix] = None,
                        device="cuda") -> Tuple[SparseOp, SparseOp]:
-    """(P, R) as device ELL operators; R defaults to P^T (Galerkin)."""
+    """(P, R) as device ELL operators; R defaults to P^T (Galerkin), or an
+    explicit Petrov-Galerkin restriction (FSI)."""
     device = resolve_device(device)
     Pop, _ = op_from_scipy(P, device, dtype)
     Rm = P.T.tocsr() if R is None else R.tocsr()

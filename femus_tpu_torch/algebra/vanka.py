@@ -56,24 +56,45 @@ def _color_blocks(blocks: Sequence[np.ndarray], n: int) -> np.ndarray:
 
 def build_element_blocks(assembler, elems_per_block: int = 4,
                          pattern: Optional[EllPattern] = None,
-                         device="cuda") -> VankaBlocks:
+                         dof_filter: Optional[np.ndarray] = None,
+                         groups=None, device="cuda") -> VankaBlocks:
     """Blocks = dof patches of ``elems_per_block`` consecutive elements,
     without Dirichlet rows.
 
     pattern: ELL pattern of the target operator (default: the assembler's;
-    pass the PtAP coarse pattern for a Galerkin-coarsened operator)."""
+    pass the PtAP coarse pattern for a Galerkin-coarsened operator).
+    dof_filter: boolean (n_dofs,) mask restricting blocks to a dof subset
+    (Vanka within a field split).
+    groups: None = blocks over all elements; "material" = blocks never
+    span two element groups (the FSI fluid/solid split: each group's
+    elements are chunked on their own); a sequence of group ids = blocks
+    over the elements of those groups only."""
     device = resolve_device(device)
-    edofs = assembler.edofs[:assembler.mesh.n_elems]
+    edofs_all = assembler.edofs[:assembler.mesh.n_elems]
+    eg = np.asarray(assembler.mesh.elem_group)
+    if groups is None:
+        chunks = [edofs_all]
+    elif isinstance(groups, str):
+        if groups != "material":
+            raise ValueError(f"vanka groups {groups!r}")
+        chunks = [edofs_all[eg == g] for g in np.unique(eg)]
+    else:
+        chunks = [edofs_all[np.isin(eg, list(groups))]]
     n = assembler.n_dofs
     blocks = []
-    for b in range(-(-len(edofs) // elems_per_block)):
-        sel = edofs[b * elems_per_block:(b + 1) * elems_per_block]
-        d = np.unique(sel)
-        d = d[(d >= 0) & (d < n)]
-        d = d[~assembler.dirichlet_mask[d]]
-        if len(d):
-            blocks.append(d)
-    assert blocks, "no non-empty Vanka blocks"
+    for edofs in chunks:
+        for b in range(-(-len(edofs) // elems_per_block)):
+            sel = edofs[b * elems_per_block:(b + 1) * elems_per_block]
+            d = np.unique(sel)
+            d = d[(d >= 0) & (d < n)]
+            d = d[~assembler.dirichlet_mask[d]]
+            if dof_filter is not None:
+                d = d[dof_filter[d]]
+            if len(d):
+                blocks.append(d)
+    if not blocks:
+        raise ValueError("no non-empty Vanka blocks (filter too "
+                         "restrictive?)")
     nb = len(blocks)
     bs = max(len(b) for b in blocks)
     dofs = np.full((nb, bs), n, np.int64)

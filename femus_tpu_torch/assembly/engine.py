@@ -21,7 +21,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Callable, Dict, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -83,6 +83,7 @@ class ElemOpsBatched:
     def __init__(self, tabs, weights, coords, dim):
         # coords: (nd_geo, sdim, ne)
         self.dim = dim
+        self._tabs, self._weights, self.coords = tabs, weights, coords
         gphi, gdphi = tabs[GEO_FAMILY]
         if coords.shape[1] != dim:
             raise NotImplementedError("embedded-manifold geometry is not "
@@ -99,6 +100,14 @@ class ElemOpsBatched:
         self.wdet = weights[:, None] * detJ.abs()          # (nq, ne)
         self._dphi = {f: torch.einsum("qnd,qxde->qnxe", t[1], invJ)
                       for f, t in tabs.items()}
+
+    def moved(self, disp_nodes: torch.Tensor) -> "ElemOpsBatched":
+        """The same operations on the configuration displaced by
+        ``disp_nodes`` (nd_geo, dim, ne).  Called inside a form, the
+        geometry is rebuilt inside the function the engine differentiates,
+        so the Jacobian carries the shape derivatives."""
+        return ElemOpsBatched(self._tabs, self._weights,
+                              self.coords + disp_nodes, self.dim)
 
     def value(self, fam: str, u: torch.Tensor) -> torch.Tensor:
         """u: (nd, ne) -> (nq, ne)."""
@@ -201,6 +210,9 @@ class Assembler:
         self.dirichlet_mask = np.zeros(self.n_dofs, bool)
         self.dirichlet_values = np.zeros(self.n_dofs)
         self.volume_form: Optional[Callable] = None
+        # element-local auxiliary fields (name, family): global dof vectors
+        # of another field the form reads per element as aux[name] (nd, ne)
+        self.aux_field_specs: List[Tuple[str, str]] = []
         self._tables_cache = None
         # ---- patch-stencil matrix layout (set_patch_layout) --------------
         self.patch_tab = None
@@ -266,6 +278,12 @@ class Assembler:
         """fn(ops: ElemOpsBatched, u: dict, aux: dict) -> dict name -> (nd, ne)."""
         self.volume_form = fn
 
+    def add_aux_field(self, name: str, family: str) -> None:
+        """Let the form read the global ``family`` dof vector passed as
+        ``aux_fields[name]`` as its element-local values ``aux[name]``."""
+        self.aux_field_specs.append((name, family))
+        self._tables_cache = None
+
     def _split(self, u_flat: torch.Tensor) -> Dict[str, torch.Tensor]:
         return {u.name: u_flat[self.local_slices[u.name]] for u in self.unknowns}
 
@@ -294,6 +312,8 @@ class Assembler:
             "dir_mask": torch.as_tensor(mask, device=dev),
             "tabs": {f: (flt(p), flt(d)) for f, (p, d) in self.tabs_np.items()},
             "qweights": flt(self.qweights_np),
+            "aux_conn": {name: i64(self.mesh.dofmap(fam).conn)
+                         for name, fam in self.aux_field_specs},
         }
         if self.patch_tab is not None:
             tab = self.patch_tab
@@ -320,11 +340,16 @@ class Assembler:
         })
         return t
 
-    def _element_fn(self, tables, aux_scalars=None) -> Callable:
+    def _element_fn(self, tables, aux_scalars=None,
+                    aux_fields=None) -> Callable:
         """``all_elems(ulT (ndt, ne)) -> (ndt, ne)``: the volume form over
         all elements at once, element-local dofs in, element residuals
-        out."""
+        out.  ``aux_fields`` (name -> global dof vector of the field's
+        family, one per ``add_aux_field``) reach the form as element-local
+        ``aux[name]`` (nd, ne), beside the scalars and ``aux['group']``."""
         aux = dict(aux_scalars or {})
+        for name, _ in self.aux_field_specs:
+            aux[name] = aux_fields[name][tables["aux_conn"][name]].T
         aux["group"] = tables["elem_group"]
         ops = ElemOpsBatched(tables["tabs"], tables["qweights"],
                              tables["coords_e"].permute(1, 2, 0), self.dim)
@@ -350,14 +375,14 @@ class Assembler:
                               vT.T.reshape(-1))
 
     def element_terms(self, u, tables, aux_scalars=None,
-                      with_jacobian: bool = True):
+                      with_jacobian: bool = True, aux_fields=None):
         """Element residuals ``rT (ndt, ne)`` of the volume form at ``u``
         and, with ``with_jacobian``, their Jacobians ``jacT (ndt_j, ndt_i,
         ne)`` (else None): the forward derivative of all element residuals
         along the ``ndt`` unit tangents (``torch.func.jvp`` under ``vmap``;
         exact, because element residuals are local).  Every matrix layout
         (ELL, patch stencil, lattice stencil, diagonal) scatters these."""
-        all_elems = self._element_fn(tables, aux_scalars)
+        all_elems = self._element_fn(tables, aux_scalars, aux_fields)
         u = u.to(device=self.device, dtype=self.dtype)
         u_locT = u[tables["edofs"]].T                    # (ndt, ne)
         rT = all_elems(u_locT)
@@ -373,20 +398,21 @@ class Assembler:
                          pass_tables: bool = False):
         """Assembly function.
 
-        pass_tables=False: (u, aux_scalars) -> (R, data) with the tables
-        built once and closed over.
-        pass_tables=True: (u, tables, aux_scalars) -> (R, data) with tables
-        supplied per call.  ``aux_scalars`` (e.g. ``nu``) reach the form's
-        ``aux`` dict.
+        pass_tables=False: (u, aux_scalars, aux_fields) -> (R, data) with
+        the tables built once and closed over.
+        pass_tables=True: (u, tables, aux_scalars, aux_fields) -> (R, data)
+        with tables supplied per call.  ``aux_scalars`` (e.g. ``nu``) and
+        the element-local ``aux_fields`` (see :meth:`_element_fn`) reach
+        the form's ``aux`` dict.
 
         Element residuals and Jacobians come from :meth:`element_terms`;
         the Jacobian lands in ELL ``data (n_rows, width)`` or, with a patch
         layout, in the flat patch-stencil weights."""
         const_tables = None if pass_tables else self.device_tables()
 
-        def assemble_t(u, tables, aux_scalars=None):
+        def assemble_t(u, tables, aux_scalars=None, aux_fields=None):
             rT, jacT = self.element_terms(u, tables, aux_scalars,
-                                          with_jacobian)
+                                          with_jacobian, aux_fields)
             R = torch.where(tables["dir_mask"], 0.0,
                             self._scatter_rows(tables, rT))
             if not with_jacobian:
@@ -407,18 +433,20 @@ class Assembler:
         if pass_tables:
             return assemble_t
 
-        def assemble(u, aux_scalars=None):
-            return assemble_t(u, const_tables, aux_scalars)
+        def assemble(u, aux_scalars=None, aux_fields=None):
+            return assemble_t(u, const_tables, aux_scalars, aux_fields)
 
         return assemble
 
     def make_diag_fn(self):
-        """(u, tables, aux_scalars=None) -> the Jacobian DIAGONAL
-        ``(n_dofs,)`` without global matrix data: the smoother scaling of
-        the matrix-free operator path.  Dirichlet rows get exactly 1."""
+        """(u, tables, aux_scalars=None, aux_fields=None) -> the Jacobian
+        DIAGONAL ``(n_dofs,)`` without global matrix data: the smoother
+        scaling of the matrix-free operator path.  Dirichlet rows get
+        exactly 1."""
 
-        def diag_t(u, tables, aux_scalars=None):
-            _, jacT = self.element_terms(u, tables, aux_scalars)
+        def diag_t(u, tables, aux_scalars=None, aux_fields=None):
+            _, jacT = self.element_terms(u, tables, aux_scalars,
+                                         aux_fields=aux_fields)
             dlocT = torch.diagonal(jacT, dim1=0, dim2=1).T    # (ndt, ne)
             return torch.where(tables["dir_mask"], 1.0,
                                self._scatter_rows(tables, dlocT))
@@ -426,7 +454,8 @@ class Assembler:
         return diag_t
 
     def make_linearized_fn(self):
-        """(u, tables, aux_scalars=None) -> (R, jv): the residual at ``u``
+        """(u, tables, aux_scalars=None, aux_fields=None) -> (R, jv): the
+        residual at ``u``
         (Dirichlet rows zeroed) and the action ``jv(v) = J(u) v`` of its
         Jacobian WITHOUT Dirichlet elimination and without any global
         matrix data — the fine operator of the matrix-free path.  The
@@ -434,8 +463,8 @@ class Assembler:
         element-local, so neither the gather nor the ``index_add_`` scatter
         is differentiated); each ``jv`` is gather -> linear map -> scatter."""
 
-        def lin_t(u, tables, aux_scalars=None):
-            all_elems = self._element_fn(tables, aux_scalars)
+        def lin_t(u, tables, aux_scalars=None, aux_fields=None):
+            all_elems = self._element_fn(tables, aux_scalars, aux_fields)
             u = u.to(device=self.device, dtype=self.dtype)
             rT, jvp = torch.func.linearize(all_elems, u[tables["edofs"]].T)
             R = torch.where(tables["dir_mask"], 0.0,

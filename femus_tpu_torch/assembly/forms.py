@@ -1,5 +1,5 @@
 """Ready-made weak forms (Poisson, mass, nonlinear diffusion, steady
-Navier–Stokes, linear elasticity).
+Navier–Stokes, elasticity).
 
 Each form is a pure function ``form(ops, u, aux) -> {var: residual}`` over
 :class:`~femus_tpu_torch.assembly.engine.ElemOpsBatched`; Jacobians come
@@ -95,18 +95,20 @@ def navier_stokes(vel=("u", "v"), pres: str = "p",
 
 def elasticity(disp=("dx", "dy"), family: str = "biquadratic",
                model: str = "linear", lam: float = 1.0, mu: float = 1.0,
-               force: Optional[Callable] = None):
-    """Linear elasticity in the displacement formulation:
+               force: Optional[Callable] = None,
+               pres: Optional[str] = None, pres_family: str = "linear",
+               incompressible: bool = False):
+    """Solid mechanics residual, total-Lagrangian displacement formulation:
 
-      div P + f = 0,  P = 2 mu eps(u) + lam tr(eps(u)) I,
-      eps(u) = (grad u + grad u^T) / 2.
+      div P + f = 0,  tested with the displacement basis.
 
-    ``force`` maps a flat (N, dim) tensor of physical points to (N, dim)
-    body-force values.  Only ``model="linear"`` is ported; the finite-strain
-    models and the mixed displacement-pressure variant are not."""
-    if model != "linear":
-        raise NotImplementedError(f"elasticity model {model!r} is not "
-                                  "ported (only 'linear')")
+    Constitutive models: "linear" (P = 2 mu eps + lam tr(eps) I, eps the
+    symmetric gradient), "saint-venant" (St. Venant-Kirchhoff, finite
+    strain), "neo-hookean" (compressible, Bonet-Wood form), and the rest of
+    the ``Solid`` registry through :func:`systems.constitutive.first_piola`.
+    With ``pres`` set, a pressure field enforces (near-)incompressibility
+    monolithically.  ``force`` maps a flat (N, dim) tensor of physical
+    points to (N, dim) body-force values."""
     dim = len(disp)
 
     def form(ops, u, aux):
@@ -114,16 +116,66 @@ def elasticity(disp=("dx", "dy"), family: str = "biquadratic",
         mu_ = aux.get("mu", mu)
         # G[q, d, x, e] = du_d / dx_x
         G = torch.stack([ops.grad(family, u[c]) for c in disp], dim=1)
-        eps = 0.5 * (G + tensors.transpose(G))
-        P = (2.0 * mu_ * eps
-             + lam_ * tensors.qpm(tensors.trace(eps)) * tensors.eye_like(dim, G))
-        fq = ops.pointwise(force) if force is not None else None
+        I = tensors.eye_like(dim, G)
+        if model == "linear":
+            eps = 0.5 * (G + tensors.transpose(G))
+            P = 2.0 * mu_ * eps + lam_ * tensors.qpm(tensors.trace(eps)) * I
+        elif model == "saint-venant":
+            F = I + G
+            E = 0.5 * (tensors.matTmul(F, F) - I)
+            S = 2.0 * mu_ * E + lam_ * tensors.qpm(tensors.trace(E)) * I
+            P = tensors.matmul(F, S)
+        elif model == "neo-hookean":
+            F = I + G
+            J = tensors.det(F)
+            FinvT = tensors.transpose(tensors.inv(F))
+            P = mu_ * (F - FinvT) + lam_ * tensors.qpm(torch.log(J)) * FinvT
+        else:
+            # the rest of the registry (Bonet-Wood / Allan-Bower /
+            # Mooney-Rivlin); the pressure enters the stress there
+            from ..systems.constitutive import first_piola
+            pq = (ops.value(pres_family, u[pres])
+                  if pres is not None else None)
+            P = first_piola(model, G, mu_, lam_, p=pq, incompressible=True)
+            fq2 = ops.pointwise(force) if force is not None else None
+            out = {}
+            for d, c in enumerate(disp):
+                r = ops.tgrad(family, P[:, d])
+                if fq2 is not None:
+                    r = r - ops.t(family, fq2[:, d])
+                out[c] = r
+            if pres is not None:
+                J = tensors.det(I + G)
+                cres = (J - 1.0) if incompressible else \
+                    (J - 1.0) - ops.value(pres_family, u[pres]) / lam_
+                out[pres] = -ops.t(pres_family, cres)
+            return out
         out = {}
+        if pres is not None:
+            pq = ops.value(pres_family, u[pres])
+            if model == "linear":
+                P = P - tensors.qpm(pq) * I
+            else:
+                F = I + G
+                J = tensors.det(F)
+                FinvT = tensors.transpose(tensors.inv(F))
+                P = P - tensors.qpm(pq * J) * FinvT
+        fq = ops.pointwise(force) if force is not None else None
         for d, c in enumerate(disp):
             r = ops.tgrad(family, P[:, d])
             if fq is not None:
                 r = r - ops.t(family, fq[:, d])
             out[c] = r
+        if pres is not None:
+            if model == "linear":
+                divu = tensors.trace(G)
+                cres = divu if incompressible else divu - ops.value(
+                    pres_family, u[pres]) / lam_
+            else:
+                J = tensors.det(I + G)
+                cres = (J - 1.0) if incompressible else (J - 1.0) - ops.value(
+                    pres_family, u[pres]) / lam_
+            out[pres] = -ops.t(pres_family, cres)
         return out
 
     return form

@@ -3,12 +3,12 @@
 The JAX package's objects hand over as plain numpy arrays (its operators'
 ``data``/``cols``, its BELL plan's index arrays and slab, its patch
 operators' weights and one-hot routing matrices, its DIA and lattice-stencil
-operators' data and offsets, its solution fields), so both
-packages can compute on the same operator and state.
+operators' data and offsets, its solution fields, old fields and aux
+fields), so both packages can compute on the same operator and state.
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional
+from typing import Dict, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
@@ -102,9 +102,34 @@ def stencil_op_from_numpy(data: np.ndarray, offsets, grid, device="cuda",
 
 
 def solution_from_numpy(ml_sol, arrays: Dict[str, np.ndarray],
-                        level: int = -1):
+                        level: int = -1, old: bool = False):
     """Write named field arrays into one level of a port
-    ``MultiLevelSolution`` (in place; returns it)."""
+    ``MultiLevelSolution``, into its old values with ``old`` (in place;
+    returns it)."""
+    dst = ml_sol.sol_old if old else ml_sol.sol
     for name, values in arrays.items():
-        ml_sol.sol[level][name][:] = np.asarray(values)
+        dst[level][name][:] = np.asarray(values)
     return ml_sol
+
+
+def state_from_numpy(ml_sol, sol: Sequence[Mapping[str, np.ndarray]],
+                     sol_old: Optional[Sequence[Mapping]] = None):
+    """Carry a whole multilevel state across: ``sol`` (and ``sol_old``)
+    hold one name -> array dict per level, as either package's
+    ``MultiLevelSolution.sol`` / ``sol_old`` do."""
+    for l, arrays in enumerate(sol):
+        solution_from_numpy(ml_sol, arrays, l)
+    for l, arrays in enumerate(sol_old or ()):
+        solution_from_numpy(ml_sol, arrays, l, old=True)
+    return ml_sol
+
+
+def aux_fields_from_numpy(arrays: Mapping[str, np.ndarray], device="cuda",
+                          dtype: torch.dtype = None) -> Dict[str,
+                                                             torch.Tensor]:
+    """Aux field arrays (alias -> global dof vector, as the JAX package's
+    ``System._aux_arrays`` gives them) as the ``aux_fields`` argument of
+    the port's assembly and step functions."""
+    device = resolve_device(device)
+    return {k: torch.as_tensor(np.asarray(v), dtype=dtype, device=device)
+            for k, v in arrays.items()}

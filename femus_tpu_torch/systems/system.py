@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import dataclasses
 import time as _time
-from typing import Callable, Dict, List, NamedTuple, Optional
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import scipy.sparse as sp
@@ -58,6 +58,10 @@ class SolverConfig:
     cheb_degree: int = 3
     vanka_block_elems: int = 2
     vanka_omega: float = 0.9
+    # None = blocks over all elements; "material" = blocks never span two
+    # element groups (the FSI fluid/solid split); a sequence of group ids =
+    # blocks over those groups' elements only
+    vanka_groups: Optional[object] = None
     # multiplicative (coloured sweeps, one residual refresh per colour) vs
     # additive (one batched sweep with overlap averaging, omega ~0.5)
     vanka_multiplicative: bool = True
@@ -90,6 +94,10 @@ class SolverConfig:
     # (a plan whose blocked-ELL slab would exceed 24x the ELL bytes is
     # rebuilt with RCM), "rcm" reorders at plan build
     bell_order: str = "identity"
+    # cap on the cycle's depth: K = only the top K mesh levels form the
+    # preconditioner hierarchy (0 = all); a truncated coarsest level above
+    # coarse_dense_max_dofs is smoothed instead of LU-solved
+    max_mg_levels: int = 0
     # dofs above which the coarsest V-cycle level is smoothed, not LU-solved
     coarse_dense_max_dofs: int = 20000
     # a single-level solve below this size is a dense direct solve
@@ -123,6 +131,8 @@ class System:
         self.name = name
         self.unknown_names: List[str] = []
         self.volume_form: Optional[Callable] = None
+        # element-local aux fields: (solution var, alias, use its old value)
+        self.aux_specs: List[Tuple[str, str, bool]] = []
         self.aux_scalars: Dict[str, float] = {}
         self.config = SolverConfig()
         self._initialized = False
@@ -135,6 +145,13 @@ class System:
     def set_assembly(self, volume_form: Callable) -> None:
         """The weak form (a pure function, see assembly/forms.py)."""
         self.volume_form = volume_form
+
+    def add_aux_field(self, sol_var: str, alias: Optional[str] = None,
+                      old: bool = False) -> None:
+        """Expose another solution variable (or its old value) to the form
+        as ``aux[alias]`` (element-local); call before :meth:`init`."""
+        self.aux_specs.append(
+            (sol_var, alias or (sol_var + ("_old" if old else "")), old))
 
     def set_scalar(self, **kw) -> None:
         self.aux_scalars.update(kw)
@@ -189,6 +206,8 @@ class System:
             if (cfg.operator == "patch"
                     and getattr(mesh, "patch_plan", None) is not None):
                 a.set_patch_layout(mesh.patch_plan)
+            for svar, alias, _ in self.aux_specs:
+                a.add_aux_field(alias, ml_sol.vars[svar].family)
             mask = np.zeros(a.n_dofs, bool)
             vals = np.zeros(a.n_dofs)
             for u in self.unknowns:
@@ -202,24 +221,29 @@ class System:
             a.set_dirichlet(mask, vals)
             self.assemblers.append(a)
             self.masks.append(a.dirichlet_mask)
-        # transfers, chained top-down so each Galerkin schedule consumes
-        # the actual ELL pattern of the level above; rediscretized levels
-        # need P and R only, plus the state restriction of each level
+        self._transfer_cache: Dict[int, list] = {}
+        self._build_transfers()
+        self._step_fns: Dict[int, Callable] = {}
+        self._bell_plans: Dict[object, object] = {}
+        self._initialized = True
+
+    def _build_transfers(self) -> None:
+        """Transfers against the current Dirichlet masks, chained top-down
+        so each schedule consumes the actual ELL pattern of the level above;
+        rediscretized levels need P and R only, plus the state restriction
+        of each level."""
+        rediscretize = self.config.coarse_op == "rediscretize"
         n_levels = len(self.ml_mesh.levels)
         self.transfers = [None] * (n_levels - 1)
         self._rsol = [None] * (n_levels - 1)
         pat_above = None if rediscretize else self.assemblers[-1].pattern
-        self._transfer_cache: Dict[int, list] = {}
         for l in range(n_levels - 2, -1, -1):
-            P = self._prolongation(l)
-            self.transfers[l] = self._build_transfer(l, P, pat_above)
+            P, R = self._physical_pair(l)
+            self.transfers[l] = self._build_transfer(l, P, R, pat_above)
             if rediscretize:
                 self._rsol[l] = self._state_restriction(P)
             else:
                 pat_above = self.transfers[l][2].coarse_pattern
-        self._step_fns: Dict[int, Callable] = {}
-        self._bell_plans: Dict[object, object] = {}
-        self._initialized = True
 
     def _check_device(self, device) -> None:
         if device is not None and resolve_device(device) != self.device:
@@ -249,6 +273,16 @@ class System:
             off = a.offsets[u.name]
             n = self.ml_sol.n_dofs(u.name, level)
             self.ml_sol.sol[level][u.name][:] = x[off:off + n]
+
+    def _aux_arrays(self, level: int) -> Dict[str, torch.Tensor]:
+        """The aux fields of ``level`` as read now (old values after the
+        transient drive's copy_to_old), on the device."""
+        out = {}
+        for svar, alias, old in self.aux_specs:
+            src = self.ml_sol.sol_old if old else self.ml_sol.sol
+            out[alias] = torch.as_tensor(src[level][svar], dtype=self.dtype,
+                                         device=self.device)
+        return out
 
     # ---- routing telemetry -----------------------------------------------
     def _route_note(self, **kw) -> None:
@@ -313,23 +347,39 @@ class System:
         out.sort_indices()
         return out
 
-    def _prolongation(self, l: int):
-        """Unmasked scipy prolongation level l -> l+1, physical frame."""
+    def _make_transfer_pair(self, l: int):
+        """Unmasked scipy (P, R) for level l -> l+1 in the logical
+        (per-variable block) layout; R = None means P^T (Galerkin).
+        ``MonolithicFSISystem`` overrides this with the FSI Petrov-Galerkin
+        restriction."""
         P = block_diag_prolongation(self.ml_mesh.levels[l],
                                     self.ml_mesh.levels[l + 1], self.unknowns)
-        return self._permute_transfer(P, self.assemblers[l + 1].stack_perm,
-                                      self.assemblers[l].stack_perm)
+        return P, None
 
-    def _build_transfer(self, l: int, P, pat_above):
+    def _physical_pair(self, l: int):
+        """:meth:`_make_transfer_pair` in the physical frame: P's rows are
+        fine dofs and its columns coarse ones, R the other way round."""
+        P, R = self._make_transfer_pair(l)
+        pf = self.assemblers[l + 1].stack_perm
+        pc = self.assemblers[l].stack_perm
+        P = self._permute_transfer(P, pf, pc)
+        if R is not None:
+            R = self._permute_transfer(R, pc, pf)
+        return P, R
+
+    def _build_transfer(self, l: int, P, R, pat_above):
         """(P_op, R_op, coarse schedule) for level l -> l+1 from the
-        unmasked prolongation ``P``; the Galerkin schedule runs against the
-        fine-side pattern ``pat_above`` (None: no schedule)."""
-        # essential-dof masking in the PHYSICAL frame
+        unmasked physical-frame pair (``R`` None: P^T); the schedule (R A P,
+        or P^T A P) runs against the fine-side pattern ``pat_above`` (None:
+        no schedule)."""
+        # essential-dof masking in the PHYSICAL frame (R: masks swapped)
         Pm = mask_prolongation(P, self.masks[l + 1], self.masks[l])
-        Pop, Rop = op_pair_from_scipy(Pm, dtype=self.dtype,
+        Rm = (None if R is None
+              else mask_prolongation(R, self.masks[l], self.masks[l + 1]))
+        Pop, Rop = op_pair_from_scipy(Pm, dtype=self.dtype, R=Rm,
                                       device=self.device)
         sched = None if pat_above is None else build_ptap_schedule(
-            pat_above, Pm, dtype=self.dtype, device=self.device)
+            pat_above, Pm, dtype=self.dtype, R=Rm, device=self.device)
         return (Pop, Rop, sched)
 
     def _state_restriction(self, P):
@@ -357,7 +407,7 @@ class System:
                 tr = [None] * level
                 pat_above = self.assemblers[level].pattern
                 for l in range(level - 1, -1, -1):
-                    tr[l] = self._build_transfer(l, self._prolongation(l),
+                    tr[l] = self._build_transfer(l, *self._physical_pair(l),
                                                  pat_above)
                     pat_above = tr[l][2].coarse_pattern
             self._transfer_cache[level] = tr
@@ -365,8 +415,12 @@ class System:
 
     # ---- per-level solve step ----------------------------------------------
     def step_fn(self, level: int = -1, device=None) -> Callable:
-        """(u, tables=None, aux_scalars=None) -> :class:`StepOut`.
-        ``device``: None or the device the system was initialised on."""
+        """(u, tables=None, aux_scalars=None, aux_fields=None) ->
+        :class:`StepOut`.  ``aux_fields`` (the level's element-local aux
+        fields) default to :meth:`_aux_arrays` read at the call, never at
+        the build: a cached step reads the old values of the current time
+        step.  ``device``: None or the device the system was initialised
+        on."""
         self._check_device(device)
         n_levels = len(self.ml_mesh.levels)
         if level < 0:
@@ -378,9 +432,16 @@ class System:
         cfg = self.config
         transfers = (self._transfers_for(level)
                      if (cfg.use_mg and level > 0) else [])
+        base = 0                       # coarsest mesh level of the cycle
+        if transfers and cfg.max_mg_levels >= 2:
+            base = max(0, level - (cfg.max_mg_levels - 1))
+            transfers = transfers[base:]
         dmasks = [torch.as_tensor(m, device=self.device)
-                  for m in self.masks[:level]]
+                  for m in self.masks[base:level]]
         rediscretize = cfg.coarse_op == "rediscretize" and bool(transfers)
+        if rediscretize and base:
+            raise NotImplementedError("coarse_op='rediscretize' with "
+                                      "max_mg_levels")
         # a coarsest level within coarse_dense_max_dofs (a rediscretized
         # one always) is LU-solved in the V-cycle: it is never smoothed nor
         # multiplied, so it gets no Vanka blocks and no BELL-frame operator
@@ -410,6 +471,9 @@ class System:
                          and n_levels > 1)
 
         if cfg.operator == "matrix_free" and not coarse_direct:
+            if base:
+                raise NotImplementedError("operator='matrix_free' with "
+                                          "max_mg_levels")
             step = self._matrix_free_step(level, a, transfers)
             self._step_fns[level] = step
             return step
@@ -418,15 +482,18 @@ class System:
         if cfg.smoother in ("vanka", "vanka_gmres"):
             from ..algebra.vanka import build_element_blocks
             if transfers:
-                vblocks = [None if (l == 0 and coarse_lu) else
+                # j indexes the cycle's levels, base + j the mesh levels
+                vblocks = [None if (j == 0 and coarse_lu) else
                            build_element_blocks(
-                               self.assemblers[l], cfg.vanka_block_elems,
-                               pattern=(transfers[l][2].coarse_pattern
-                                        if l < len(transfers) else None),
-                               device=self.device)
-                           for l in range(level + 1)]
+                               self.assemblers[base + j],
+                               cfg.vanka_block_elems,
+                               pattern=(transfers[j][2].coarse_pattern
+                                        if j < len(transfers) else None),
+                               groups=cfg.vanka_groups, device=self.device)
+                           for j in range(level + 1 - base)]
             else:
                 vblocks = [build_element_blocks(a, cfg.vanka_block_elems,
+                                                groups=cfg.vanka_groups,
                                                 device=self.device)]
 
         bell_fine = bell_coarse = None
@@ -437,10 +504,12 @@ class System:
                                self._bell_dev(t[2].coarse_pattern)
                                for l, t in enumerate(transfers)] + [None]
 
-        def step(u, tables=None, aux_scalars=None):
+        def step(u, tables=None, aux_scalars=None, aux_fields=None):
             tables = a.device_tables_cached() if tables is None else tables
+            if aux_fields is None:
+                aux_fields = self._aux_arrays(level)
             u = u.to(device=self.device, dtype=self.dtype)
-            R, data = assemble(u, tables, aux_scalars)
+            R, data = assemble(u, tables, aux_scalars, aux_fields)
             res_norm = float(torch.linalg.norm(R))
             A = a.op_with(data, tables.get("ell_cols"))
             if bell_fine is not None:
@@ -461,7 +530,8 @@ class System:
                     u_l = (Rsol @ u_l) * winv
                     a_c = self.assemblers[l]
                     t_c = a_c.device_tables_cached()
-                    _, data_l = coarse_assemble[l](u_l, t_c, aux_scalars)
+                    _, data_l = coarse_assemble[l](u_l, t_c, aux_scalars,
+                                                   self._aux_arrays(l))
                     ops[l] = a_c.op_with(data_l, t_c.get("ell_cols"))
                 h = build_hierarchy_from_ops(
                     ops, [(t[0], t[1]) for t in transfers],
@@ -527,7 +597,8 @@ class System:
             fine_pr = transfers[level - 1][:2]
             a_c = self.assemblers[level - 1]
             assemble_c = a_c.make_assemble_fn(pass_tables=True)
-            Rsol, winv = self._state_restriction(self._prolongation(level - 1))
+            Rsol, winv = self._state_restriction(
+                self._physical_pair(level - 1)[0])
             sub_masks = [torch.as_tensor(m, device=self.device)
                          for m in self.masks[:level - 1]]
             # Vanka on the assembled sub-levels (the LU-solved coarsest
@@ -539,21 +610,25 @@ class System:
                     self.assemblers[l], cfg.vanka_block_elems,
                     pattern=(sub_tr[l][2].coarse_pattern
                              if l < len(sub_tr) else None),
-                    device=self.device) for l in range(level)]
+                    groups=cfg.vanka_groups, device=self.device)
+                    for l in range(level)]
 
-        def step(u, tables=None, aux_scalars=None):
+        def step(u, tables=None, aux_scalars=None, aux_fields=None):
             tables = a.device_tables_cached() if tables is None else tables
+            if aux_fields is None:
+                aux_fields = self._aux_arrays(level)
             u = u.to(device=self.device, dtype=self.dtype)
-            R, jv = linearize(u, tables, aux_scalars)
+            R, jv = linearize(u, tables, aux_scalars, aux_fields)
             res_norm = float(torch.linalg.norm(R))
 
             def Amv(v):
                 return torch.where(m_f, v, jv(torch.where(m_f, 0.0, v)))
 
-            diag = diag_fn(u, tables, aux_scalars)
+            diag = diag_fn(u, tables, aux_scalars, aux_fields)
             if transfers:
                 t_c = a_c.device_tables_cached()
-                _, data_c = assemble_c((Rsol @ u) * winv, t_c, aux_scalars)
+                _, data_c = assemble_c((Rsol @ u) * winv, t_c, aux_scalars,
+                                       self._aux_arrays(level - 1))
                 h = build_hierarchy_matfree(
                     Amv, diag, a_c.op_with(data_c, t_c.get("ell_cols")),
                     list(sub_tr) + [fine_pr], smoother=cfg.smoother,
@@ -598,7 +673,7 @@ class System:
                             device=self.device)
         k0 = launch_counts()
         t0 = _time.perf_counter()
-        out = self.step_fn(l)(u, None, self.aux_scalars)
+        out = self.step_fn(l)(u, None, self.aux_scalars, self._aux_arrays(l))
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.last_step_seconds = _time.perf_counter() - t0

@@ -41,6 +41,15 @@ def test_importing_every_module_pulls_in_no_jax():
     assert len(_modules()) >= 20
 
 
+def test_fsi_and_transient_modules_are_covered():
+    """The FSI and time-integrator modules are among those the two checks
+    above import and parse."""
+    mods = set(_modules())
+    for m in ("systems.fsi", "systems.transient", "systems.constitutive",
+              "algebra.transfer", "algebra.vanka", "convert"):
+        assert f"femus_tpu_torch.{m}" in mods, m
+
+
 def test_no_source_file_imports_the_jax_package():
     for dirpath, _, files in os.walk(PKG_DIR):
         for f in files:

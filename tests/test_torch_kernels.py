@@ -118,6 +118,56 @@ def test_bell_kernel_rejects_bad_input(cuda):
                             torch.ones(plan.n, device=cuda))
 
 
+def _fsi_jacobian():
+    """Monolithic FSI Jacobian (dx, dy, u, v Q2, p P1dc, interleaved; an
+    elastic bed in the bottom quarter) at a seeded random state (host):
+    rows of 39 to 112 entries."""
+    from femus_tpu_torch.systems.fsi import fsi_steady_form
+    mesh = unit_box((8, 8))
+    cent = mesh.coords[mesh.conn].mean(axis=1)
+    mesh.elem_group = np.where(cent[:, 1] < 0.25, 1, 0).astype(np.int32)
+    asm = Assembler(mesh, [Unknown(n) for n in ("dx", "dy", "u", "v")]
+                    + [Unknown("p", "disc_linear")], interleave=True,
+                    device="cpu")
+    asm.set_volume_form(fsi_steady_form(
+        solid_groups=(1,), pres_family="disc_linear", nu=0.05, lam=50.0,
+        mu=50.0))
+    rng = np.random.default_rng(3)
+    u = rng.standard_normal(asm.n_dofs)
+    for name in ("dx", "dy"):
+        off, n = asm.offsets[name], asm.dofmaps[name].n_dofs
+        u[asm.stack_perm[off:off + n]] *= 0.002      # det F > 0
+    _, data = asm.make_assemble_fn()(torch.as_tensor(u))
+    assert bool(torch.isfinite(data).all())
+    return asm.pattern, data
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("val_dtype,rtol", [(torch.float32, 1e-5),
+                                            (torch.float64, 1e-12)])
+@pytest.mark.parametrize("order", ["identity", None])
+def test_bell_kernel_on_fsi_jacobian(cuda, val_dtype, rtol, order):
+    """B1 on the uneven rows of an FSI Jacobian, in the plan a solve
+    builds, against its plain version; the layout's fill is reported."""
+    pattern, data = _fsi_jacobian()
+    counts = pattern.valid.sum(axis=1)
+    assert counts.min() == 39 and counts.max() == 112
+    plan = bell.build_bell_plan(pattern, perm=order)
+    sell = plan.sell()
+    assert 1.0 <= sell.fill < 1.5
+    op = bell.relayout_ell(sell, data, dtype=val_dtype, device=cuda)
+    x = torch.as_tensor(np.random.default_rng(4).standard_normal(plan.n),
+                        dtype=val_dtype, device=cuda)
+    n0 = bell.spmv_bell_cuda.launches
+    y = op.matvec_frame(x)
+    torch.cuda.synchronize()
+    assert bell.spmv_bell_cuda.launches == n0 + 1
+    y_ref = bell._matvec_plain_frame(op, x)
+    scale = bell._matvec_plain_frame(_abs_op(op), x.abs()).abs().max()
+    assert float((y - y_ref).abs().max()) <= rtol * float(scale)
+    assert torch.equal(op.matvec_frame(x), y)
+
+
 def _rotated(coarse):
     """The same coarse quad mesh with every second element's local frame
     turned a quarter (corners, mid-edge nodes and boundary face ids shifted

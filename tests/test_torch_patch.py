@@ -590,5 +590,9 @@ def test_patch_config_errors():
         s.config.operator = op
         with pytest.raises(NotImplementedError, match="operator='patch'"):
             s.init(device="cpu")
-    with pytest.raises(NotImplementedError, match="linear"):
-        tforms.elasticity(("DX", "DY"), model="neo-hookean")
+    # the finite-strain models are ported (tests/test_torch_fsi.py); a
+    # model outside the Solid registry raises
+    from femus_tpu_torch.systems.constitutive import cauchy_stress
+    assert callable(tforms.elasticity(("DX", "DY"), model="neo-hookean"))
+    with pytest.raises(KeyError):
+        cauchy_stress("no-such-model", torch.zeros(4, 2, 2, 1), 1.0)
