@@ -87,24 +87,66 @@ poisson-patch-1M) and the solver routes beside the V-cycle:
 13. lattice_reference — set-up, sweep and CG solve at n=16 on the card
                      (float32) and the host (float64) must agree;
 14. cycles_reference — the small cavity on the card with mg_cycle W, F and
-                     K (K through FGMRES) and with operator="matrix_free"
-                     must converge and agree with the V-cycle solve.
+                     K (K through FGMRES), with operator="matrix_free" and
+                     with the V-cycle built in bfloat16 (``bf16_newton``:
+                     B1 on bfloat16 values, the coarse LU in float32) must
+                     converge and agree with the V-cycle solve.
+
+Slice 6, block solvers, norms, boundary-face forms and optimal control on
+the BELL-frame operator (kernel B1; see ``oc_system``, constants OC_*):
+
+15. oc_setup      — System.init of oc-distributed-128: elliptic distributed
+                    control, y, l, u Q2 on unit_box((16,16)) refined to 4
+                    levels (198,147 dofs), stacked dofs, Vanka V-cycle
+                    GMRES(60), rtol 1e-6, float32: seconds, dofs, nnz,
+                    routing;
+16. oc_kernel     — B1 on the fine KKT operator against its plain version
+                    (f32, bf16; f64 on random data), cold time, bound, CSR;
+17. oc_main       — the unconstrained KKT solve: iterations, seconds, B1
+                    launches, J (cost_functional on the card); gates: every
+                    linear solve meets rtol, |alpha u - l| <= 1e-6 max(1,
+                    |l|), J finite, B1 launched;
+   (--profile: one more KKT solve step under torch.profiler);
+18. oc_pdas       — 5 PDAS iterations from that optimum, bounds (0.5, 8):
+                    active counts and seconds per iteration; gates: linear
+                    solves meet rtol, u within the bounds, both active sets
+                    non-empty (settling is not gated: ROADMAP C);
+19. oc_boundary   — oc-boundary-128 (Neumann control on x = 1,
+                    fix_interior_control): iterations, seconds, face
+                    assembly device ms; gates: rtol met, the control off
+                    the control boundary below OC_OFF_GC_MAX of its size
+                    on it, B1 launched;
+20. oc_theta      — oc-theta-64, the bordered zero-mean control (operator
+                    "assembled", no kernel): theta, Newton steps; gate
+                    |B x - g| <= 1e-8 |B| |x|;
+21. fieldsplit    — FGMRES(50) on the 148,739-dof cavity Jacobian with the
+                    flat Schur split and with the nested Vanka/Jacobi
+                    Schur tree: iterations, true residuals, seconds, B1
+                    launches; gates: finite, the tree's residual within
+                    1.5x the flat one's, B1 launched;
+22. convergence   — convergence_study of Q2 Poisson, unit_box((4,4)) over 6
+                    levels (finest 128x128), MG-CG rtol 1e-12 in float64,
+                    norms on the card; gates: L2 order > 2.7, H1 > 1.8;
+23. oc_reference  — card against host in float64 at unit_box((4,4)), 2
+                    levels: 3 PDAS iterations, boundary control, theta and
+                    one application of each field-split preconditioner (on
+                    the 16x16 cavity), to 1e-8 relative.
 
 Slice 5, monolithic ALE fluid-structure interaction on the BELL-frame
 operator (kernel B1), with the Petrov-Galerkin R A P hierarchy and
 material-split Vanka (see ``fsi_system``):
 
-15. fsi_setup     — System.init of fsi-bed-128: unit_box((16,16)) refined
+24. fsi_setup     — System.init of fsi-bed-128: unit_box((16,16)) refined
                     to 4 levels, finest 128x128, dx, dy, u, v Q2 and p P1dc
                     (313,348 dofs), an elastic bed in the bottom quarter;
                     host seconds, dofs, nnz and row lengths per level,
                     R A P schedule sizes;
-16. fsi_kernel    — B1 on the FSI fine Jacobian at the initial state, in the
+25. fsi_kernel    — B1 on the FSI fine Jacobian at the initial state, in the
                     solve's own plan: against its plain version with float64
                     values (the solve's) and float32 ones, and on random
                     float64 data; cold time, HBM bound, CSR time in the same
                     types, fill;
-17. fsi_main      — NonLinearImplicitSystem.solve in float64 (FSI_DTYPE; F
+26. fsi_main      — NonLinearImplicitSystem.solve in float64 (FSI_DTYPE; F
                     ratchet over the four levels, K-cycle FGMRES, linear
                     rtol 1e-4, up to 8 Newton steps per level, the pressure
                     pinned in the fluid, nu 0.05, lid 0.2): seconds, FGMRES
@@ -116,12 +158,12 @@ material-split Vanka (see ``fsi_system``):
                     state;
    (--profile: one more finest-level Newton step, one FGMRES cycle, under
     torch.profiler);
-18. fsi_transient — fsi-bed-transient-64 (the same geometry at 3 levels,
+27. fsi_transient — fsi-bed-transient-64 (the same geometry at 3 levels,
                     78,852 dofs, the bed kicked horizontally, dt = 0.01):
                     3 x TransientMonolithicFSI.time_step(); gates: every
                     level's Newton loop converges, the solid's mean u
                     changes between steps, finite state;
-19. fsi_reference — steady FSI (lid 0.02) and 2 transient steps on
+28. fsi_reference — steady FSI (lid 0.02) and 2 transient steps on
                     unit_box((4,4)), 2 levels: the card (FSI_DTYPE) against
                     the host (float64), every field to 1e-3 relative.
 
@@ -189,6 +231,26 @@ FSI_NONLINEAR_TOL = 1e-5
 # FGMRES(60) restarts per linear solve: the finest fsi-bed-128 level needs
 # 800-1,800 iterations for rtol 1e-4
 FSI_MAX_OUTER = 40
+
+
+# slice 6: oc-distributed-128 and oc-boundary-128 (unit_box((16,16)), 4
+# levels, finest 128x128, 3 x 66,049 dofs) and oc-theta-64 (3 levels);
+# float32, linear rtol 1e-6, OC_NEWTON Newton steps per KKT solve (the KKT
+# system is linear: the second step reports the first one's accuracy)
+OC_COARSE, OC_LEVELS, OC_THETA_LEVELS = 16, 4, 3
+OC_ALPHA, OC_BOUNDARY_ALPHA, OC_CTRL_GROUP = 1e-3, 1e-2, 2
+OC_BOUNDS, OC_PDAS_ITERS = (0.5, 8.0), 5
+OC_DTYPE, OC_RTOL, OC_MAX_OUTER, OC_NEWTON = torch.float32, 1e-6, 10, 2
+# largest |control| off the control boundary over its largest value on it:
+# the eliminated control rows keep corrections at the solve's tolerance
+# (their coarse-grid transfers are the ones built before the elimination,
+# as in the reference)
+OC_OFF_GC_MAX = 1e-3
+# the field-split cavity (unit_box((128,128)), 148,739 dofs) and the
+# FGMRES(50) restarts each preconditioner gets
+FIELDSPLIT_N, FIELDSPLIT_RESTARTS = 128, 6
+# the convergence study: unit_box((4,4)) through 6 levels (finest 128x128)
+CONV_COARSE, CONV_LEVELS = 4, 6
 
 
 # the measured keys of a row of the final kernel table
@@ -1215,12 +1277,569 @@ def phase_cycles_reference() -> None:
             "rel_diff": float(np.linalg.norm(fields - ref)
                               / np.linalg.norm(ref)),
             "outer": ("fgmres" if name == "K" else "gmres")}
+    # the bf16 route: the V-cycle built with compute_dtype=bfloat16
+    from femus_tpu_torch.systems.system import launch_counts
+    sys_, ml_sol = cavity_system(8, 3, "cuda", torch.float32, rtol=1e-6,
+                                 max_nonlinear=4)
+    n0 = launch_counts()["bell_spmv"]
+    hist = bf16_newton(sys_)
+    fields = np.concatenate([ml_sol.sol[-1][n] for n in ("u", "v", "p")])
+    rep["bf16"] = {"gmres_iters": [h["lin_iters"] for h in hist],
+                   "converged": all(h["converged"] for h in hist),
+                   "rel_diff": float(np.linalg.norm(fields - ref)
+                                     / np.linalg.norm(ref)),
+                   "outer": "gmres", "coarse_lu": "float32",
+                   "b1_launches": launch_counts()["bell_spmv"] - n0}
     rep["n_dofs"] = int(ref.size)
     emit(rep)
-    for name in routes:
+    for name in list(routes) + ["bf16"]:
         if not (rep[name]["converged"] and rep[name]["rel_diff"] < 1e-3):
             raise AssertionError(f"cycles_reference: route {name} failed: "
                                  f"{rep[name]}")
+    if rep["bf16"]["b1_launches"] <= 0:
+        raise AssertionError("cycles_reference: the bf16 route ran no B1")
+
+
+def bf16_newton(sys_) -> list:
+    """Newton steps of a cavity system whose V-cycle is built with
+    ``build_hierarchy(..., compute_dtype=torch.bfloat16)``: operators and
+    transfers stored in bfloat16, every level of at least 2048 rows on its
+    BELL-frame plan (B1 multiplies bfloat16 values into float32 vectors),
+    the coarse LU in float32; the system's own outer GMRES around it."""
+    from femus_tpu_torch.algebra.bell import bell_backed
+    from femus_tpu_torch.algebra.mg import build_hierarchy
+    from femus_tpu_torch.algebra.vanka import build_element_blocks
+
+    cfg = sys_.config
+    lv = len(sys_.assemblers) - 1
+    a = sys_.assemblers[lv]
+    tr = sys_._transfers_for(lv)
+    pats = [t[2].coarse_pattern for t in tr] + [a.pattern]
+    # level 0 is LU-solved: no plan, no Vanka blocks (as System.step_fn)
+    plans = [None] + [sys_._bell_dev(p) for p in pats[1:]]
+    vblocks = [None] + [build_element_blocks(
+        sys_.assemblers[j], cfg.vanka_block_elems,
+        pattern=pats[j] if j < lv else None, device=sys_.device)
+        for j in range(1, lv + 1)]
+    dmasks = [torch.as_tensor(m, device=sys_.device)
+              for m in sys_.masks[:lv]]
+    assemble = a.make_assemble_fn(pass_tables=True)
+    hist = []
+    for it in range(cfg.max_nonlinear):
+        u = torch.as_tensor(sys_.gather(lv), dtype=sys_.dtype,
+                            device=sys_.device)
+        tables = a.device_tables_cached()
+        R, data = assemble(u, tables, sys_.aux_scalars)
+        A = bell_backed(plans[-1], a.op_with(data, tables["ell_cols"]))
+        h = build_hierarchy(A, tr, smoother=cfg.smoother, n_pre=cfg.n_pre,
+                            n_post=cfg.n_post, dir_masks=dmasks,
+                            vanka_blocks=vblocks,
+                            vanka_omega=cfg.vanka_omega,
+                            vanka_multiplicative=cfg.vanka_multiplicative,
+                            compute_dtype=torch.bfloat16,
+                            coarse_dense_max=cfg.coarse_dense_max_dofs,
+                            bell_plans=plans, device=sys_.device)
+        if h.coarse_lu[0].dtype != torch.float32:
+            raise AssertionError("bf16 route: the coarse LU is not float32")
+        delta, info = sys_._outer_solve(A.matvec, -R,
+                                        h.as_preconditioner("V"))
+        u_new = (u + delta).cpu().numpy()
+        norms = sys_.eps_norms(delta.cpu().numpy(), u_new, lv)
+        sys_.scatter(u_new, lv)
+        hist.append({"lin_iters": info.iters, "converged": info.converged,
+                     "eps": norms})
+        if max(norms.values()) < cfg.nonlinear_tol:
+            break
+    return hist
+
+
+def oc_system(kind: str, coarse: int, levels: int, device, dtype,
+              rtol: float, max_nonlinear: int = OC_NEWTON):
+    """An optimal-control KKT system through the port's public entry
+    points: y, l, u biquadratic on MultiLevelMesh(unit_box((coarse,
+    coarse)), levels), y_d = sin(pi x) sin(pi y).  kind:
+    "distributed" — elliptic_control_form (alpha OC_ALPHA), y and l
+        Dirichlet, as a PDASControlSystem;
+    "boundary" — boundary_control_forms (alpha OC_BOUNDARY_ALPHA, Neumann
+        control on group OC_CTRL_GROUP, the x = 1 face), y and l Neumann
+        there, fix_interior_control;
+    "theta" — ScalarConstrainedSystem with the zero-mean control
+        constraint of tests/test_theta_constraint.py (alpha 1e-2, target
+        sin(pi x) sin(pi y) + x y), operator="assembled".
+    Solver: RCM hierarchy, stacked dofs (interleave_dofs=False), Vanka
+    V-cycle (2 elements per block, multiplicative), GMRES(60) with
+    OC_MAX_OUTER restarts, operator="bell" (distributed, boundary)."""
+    from femus_tpu_torch.mesh.generation import unit_box
+    from femus_tpu_torch.mesh.multilevel import MultiLevelMesh
+    from femus_tpu_torch.mesh.reorder import rcm_reorder_hierarchy
+    from femus_tpu_torch.systems import optimal_control as oc
+    from femus_tpu_torch.systems.problem import MultiLevelProblem
+    from femus_tpu_torch.systems.solution import MultiLevelSolution
+    from femus_tpu_torch.systems.system import NonLinearImplicitSystem
+
+    pi = np.pi
+
+    def y_d(x):
+        yd = torch.sin(pi * x[:, 0]) * torch.sin(pi * x[:, 1])
+        return yd + x[:, 0] * x[:, 1] if kind == "theta" else yd
+
+    ml_mesh = MultiLevelMesh(unit_box((coarse, coarse)), levels)
+    rcm_reorder_hierarchy(ml_mesh)
+    ml_sol = MultiLevelSolution(ml_mesh)
+    for v in ("y", "l", "u"):
+        ml_sol.add_solution(v, "biquadratic")
+        ml_sol.initialize(v)
+    if kind == "boundary":
+        ml_sol.attach_bc(lambda var, x, grp, t: (
+            (grp != OC_CTRL_GROUP) if var in ("y", "l") else False, 0.0))
+    else:
+        ml_sol.attach_bc(lambda var, x, grp, t: (var in ("y", "l"), 0.0))
+    ml_sol.generate_bdc("y", "l", "u")
+    prob = MultiLevelProblem(ml_mesh, ml_sol, quad_order="fifth")
+    cls = {"distributed": oc.PDASControlSystem,
+           "boundary": NonLinearImplicitSystem,
+           "theta": oc.ScalarConstrainedSystem}[kind]
+    sys_ = prob.add_system(cls, "OC-" + kind)
+    sys_.add_unknown("y", "l", "u")
+    if kind == "boundary":
+        sys_.set_assembly(*oc.boundary_control_forms(
+            y_target=y_d, alpha=OC_BOUNDARY_ALPHA,
+            control_groups=(OC_CTRL_GROUP,)))
+    else:
+        sys_.set_assembly(oc.elliptic_control_form(
+            "y", "l", "u", y_target=y_d,
+            alpha=1e-2 if kind == "theta" else OC_ALPHA))
+    cfg = sys_.config
+    cfg.operator = "assembled" if kind == "theta" else "bell"
+    cfg.interleave_dofs = False
+    cfg.smoother = "vanka"
+    cfg.vanka_block_elems = 2
+    cfg.vanka_multiplicative = True
+    cfg.mg_type = "V"
+    cfg.restart = 60
+    cfg.max_outer = OC_MAX_OUTER
+    cfg.rtol = rtol
+    cfg.max_nonlinear = max_nonlinear
+    sys_.init(device=device, dtype=dtype)
+    if kind == "boundary":
+        oc.fix_interior_control(sys_, "u", (OC_CTRL_GROUP,))
+    elif kind == "theta":
+        sys_.add_scalar_constraint("theta", oc.assemble_constraint_vector(
+            sys_, volume_form=lambda ops, u, aux: {"u": ops.t(
+                "biquadratic", ops.pointwise(lambda x: 1.0 + 0.0 * x[:, 0]))
+            }), rhs=0.0)
+    return sys_, ml_sol
+
+
+def _solves_ok(sys_) -> bool:
+    return all(h["converged"] for h in sys_.history)
+
+
+def phase_oc_setup() -> tuple:
+    t0 = time.perf_counter()
+    sys_, ml_sol = oc_system("distributed", OC_COARSE, OC_LEVELS, "cuda",
+                             OC_DTYPE, OC_RTOL)
+    setup_s = time.perf_counter() - t0
+    a = sys_.assemblers[-1]
+    sys_._bell_dev(a.pattern)                 # the fine plan's routing note
+    emit({"phase": "oc_setup", "config": "oc-distributed-128",
+          "seconds": setup_s, "n_dofs": [b.n_dofs for b in sys_.assemblers],
+          "nnz": int(a.pattern.nnz),
+          "row_max": int(a.pattern.valid.sum(axis=1).max()),
+          "coarse_nnz": [int(t[2].coarse_pattern.nnz)
+                         for t in sys_.transfers],
+          "dtype": str(OC_DTYPE), "routing": sys_.solver_info()["routing"]})
+    return sys_, ml_sol, setup_s
+
+
+def phase_oc_main(sys_, ml_sol) -> dict:
+    """The unconstrained KKT solve (NonLinearImplicitSystem.solve of the
+    PDAS system, before any bound), with the launch counts set to 0 just
+    before it and read just after."""
+    from femus_tpu_torch.systems.optimal_control import cost_functional
+    from femus_tpu_torch.systems.system import launch_counts
+
+    reset_launches()
+    _flush_buffer.clear()
+    t0 = time.perf_counter()
+    sys_.solve()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    sol = ml_sol.sol[-1]
+    pi = np.pi
+    t0 = time.perf_counter()
+    J = cost_functional(sys_.ml_mesh.finest(), "biquadratic", sol["y"],
+                        sol["u"], lambda x: torch.sin(pi * x[:, 0])
+                        * torch.sin(pi * x[:, 1]), OC_ALPHA, device="cuda")
+    j_s = time.perf_counter() - t0
+    l_inf = float(np.abs(sol["l"]).max())
+    grad_err = float(np.abs(OC_ALPHA * sol["u"] - sol["l"]).max())
+    finite = all(np.all(np.isfinite(sol[v])) for v in ("y", "l", "u"))
+    rep = {"phase": "oc_main", "wall_s": wall,
+           "newton_steps": len(sys_.history),
+           "gmres_iters": [h["lin_iters"] for h in sys_.history],
+           "step_seconds": [h["seconds"] for h in sys_.history],
+           "lin_res": [h["lin_res"] for h in sys_.history],
+           "lin_target": [h["lin_target"] for h in sys_.history],
+           "linear_solves_converged": _solves_ok(sys_),
+           "J": J, "cost_functional_s": j_s, "grad_eq_err": grad_err,
+           "l_inf": l_inf, "u_range": [float(sol["u"].min()),
+                                       float(sol["u"].max())],
+           "kernel_launches": launches, "fields_finite": finite,
+           "tensors_on_cuda": _all_on_cuda(sys_)}
+    emit(rep)
+    if not rep["linear_solves_converged"]:
+        raise AssertionError("oc_main: a linear solve missed its rtol")
+    if not grad_err <= 1e-6 * max(1.0, l_inf):
+        raise AssertionError(f"oc_main: |alpha u - l| = {grad_err:.3g}")
+    if not (np.isfinite(J) and finite and rep["tensors_on_cuda"]):
+        raise AssertionError("oc_main: non-finite J or fields, or tensors "
+                             "off the card")
+    if launches["bell_spmv"] <= 0:
+        raise AssertionError("oc_main: the solve launched no B1")
+    return rep
+
+
+def phase_oc_pdas(sys_, ml_sol) -> dict:
+    """solve_pdas from the unconstrained optimum, bounds OC_BOUNDS."""
+    from femus_tpu_torch.systems.system import launch_counts
+
+    sys_.set_control_bounds("u", *OC_BOUNDS, alpha=OC_ALPHA)
+    reset_launches()
+    t0 = time.perf_counter()
+    info = sys_.solve_pdas(max_iters=OC_PDAS_ITERS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    u = ml_sol.sol[-1]["u"]
+    lo, hi = OC_BOUNDS
+    rep = {"phase": "oc_pdas", "wall_s": wall, "bounds": OC_BOUNDS,
+           "pdas_iters": info["pdas_iters"],
+           "iterations": sys_.pdas_history,
+           "active_hi": info["active_hi"], "active_lo": info["active_lo"],
+           "u_range": [float(u.min()), float(u.max())],
+           "kernel_launches": launches}
+    emit(rep)
+    if not all(ok for it in sys_.pdas_history
+               for _, ok in it["linear_solves"]):
+        raise AssertionError("oc_pdas: a linear solve missed its rtol")
+    if not (u.min() >= lo - 1e-8 and u.max() <= hi + 1e-8):
+        raise AssertionError(f"oc_pdas: u leaves [{lo}, {hi}]")
+    if not (info["active_hi"] > 0 and info["active_lo"] > 0):
+        raise AssertionError("oc_pdas: an active set is empty")
+    if launches["bell_spmv"] <= 0:
+        raise AssertionError("oc_pdas: no B1 launch")
+    return rep
+
+
+def phase_oc_boundary() -> dict:
+    """oc-boundary-128: Neumann boundary control, the same mesh and
+    solver; the face assembly's device time beside the solve."""
+    from femus_tpu_torch.systems.system import launch_counts
+
+    t0 = time.perf_counter()
+    sys_, ml_sol = oc_system("boundary", OC_COARSE, OC_LEVELS, "cuda",
+                             OC_DTYPE, OC_RTOL)
+    setup_s = time.perf_counter() - t0
+    reset_launches()
+    t0 = time.perf_counter()
+    sys_.solve()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    a = sys_.assemblers[-1]
+    u = torch.as_tensor(sys_.gather(-1), dtype=sys_.dtype, device="cuda")
+    tables = a.device_tables_cached()
+    R0 = torch.zeros(a.n_dofs, dtype=sys_.dtype, device="cuda")
+    d0 = torch.zeros(a.pattern.n_rows * a.pattern.width, dtype=sys_.dtype,
+                     device="cuda")
+    # device time and wall time of the face terms alone and of the whole
+    # assembly (volume and faces), each warm, under torch.profiler
+    assemble = a.make_assemble_fn(pass_tables=True)
+    timing = {}
+    for name, fn in (("face_assembly", lambda: a._add_faces(
+            u, tables, None, R0, d0, True)),
+            ("assembly", lambda: assemble(u, tables))):
+        fn()
+        _, prof, wall = _profiled(fn)
+        timing[name] = {"device_ms": prof["device_busy_s"] * 1e3,
+                        "wall_ms": wall * 1e3,
+                        "device_kernels": prof["n_kernels"]}
+    xy = a.mesh.coords[a.dofmaps["u"].nodes]
+    on_gc = np.abs(xy[:, 0] - 1.0) < 1e-9
+    uc = ml_sol.sol[-1]["u"]
+    off = float(np.abs(uc[~on_gc]).max())
+    on = float(np.abs(uc[on_gc]).max())
+    rep = {"phase": "oc_boundary", "config": "oc-boundary-128",
+           "setup_s": setup_s, "wall_s": wall,
+           "n_dofs": a.n_dofs, "newton_steps": len(sys_.history),
+           "gmres_iters": [h["lin_iters"] for h in sys_.history],
+           "step_seconds": [h["seconds"] for h in sys_.history],
+           "linear_solves_converged": _solves_ok(sys_),
+           "face_batches": len(a.face_batches),
+           "faces": int(sum(b["fdofs"].shape[0] for b in a.face_batches)),
+           **timing,
+           "max_u_on_gc": on, "max_u_off_gc": off,
+           "kernel_launches": launches,
+           "routing": sys_.solver_info()["routing"]}
+    emit(rep)
+    if not rep["linear_solves_converged"]:
+        raise AssertionError("oc_boundary: a linear solve missed its rtol")
+    # eliminated control rows take corrections at the solve's tolerance
+    if not (on > 0 and off <= OC_OFF_GC_MAX * on):
+        raise AssertionError(f"oc_boundary: control off the control "
+                             f"boundary ({off:.3g} against {on:.3g})")
+    if launches["bell_spmv"] <= 0:
+        raise AssertionError("oc_boundary: no B1 launch")
+    return rep
+
+
+def phase_oc_theta() -> dict:
+    """The bordered zero-mean control at 64x64 (operator="assembled": this
+    phase launches no kernel)."""
+    from femus_tpu_torch.systems.system import launch_counts
+
+    t0 = time.perf_counter()
+    sys_, ml_sol = oc_system("theta", OC_COARSE, OC_THETA_LEVELS, "cuda",
+                             OC_DTYPE, OC_RTOL)
+    setup_s = time.perf_counter() - t0
+    reset_launches()
+    t0 = time.perf_counter()
+    sys_.solve()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    B = sys_._constraints[0][1]
+    x = sys_.gather(-1)
+    viol = float(abs(B @ x))
+    bound = 1e-8 * float(np.linalg.norm(B) * np.linalg.norm(x))
+    rep = {"phase": "oc_theta", "setup_s": setup_s, "wall_s": wall,
+           "n_dofs": sys_.assemblers[-1].n_dofs,
+           "theta": sys_.get_theta_value(),
+           "newton_steps": len(sys_.history),
+           "gmres_iters": [h["lin_iters"] for h in sys_.history],
+           "linear_solves_converged": _solves_ok(sys_),
+           "constraint_violation": viol, "violation_bound": bound,
+           "kernel_launches": launch_counts(),
+           "kernels": "none (operator='assembled': ELL gathers)"}
+    emit(rep)
+    if not rep["linear_solves_converged"]:
+        raise AssertionError("oc_theta: a linear solve missed its rtol")
+    if not viol <= bound:
+        raise AssertionError(f"oc_theta: |B x - g| = {viol:.3g}")
+    return rep
+
+
+def fieldsplit_cavity(n: int, device, dtype):
+    """The lid-driven cavity Jacobian of tests/test_fieldsplit_tree.py on
+    unit_box((n, n)): u, v biquadratic, p linear (Taylor-Hood), nu 0.1, the
+    pressure gauge, at the Dirichlet-lifted zero state; (assembler,
+    operator, R) with the operator on the BELL-frame plan that System
+    builds for it (bell_device_plan) from 2048 rows up."""
+    from femus_tpu_torch.algebra.bell import bell_backed
+    from femus_tpu_torch.assembly.bc import (apply_dirichlet_values,
+                                             generate_bdc)
+    from femus_tpu_torch.assembly.engine import Assembler, Unknown
+    from femus_tpu_torch.assembly.forms import navier_stokes
+    from femus_tpu_torch.mesh.generation import unit_box
+    from femus_tpu_torch.systems.system import bell_device_plan
+
+    a = Assembler(unit_box((n, n), "quad"),
+                  [Unknown("u"), Unknown("v"), Unknown("p", "linear")],
+                  quad_order="fifth", dtype=dtype, device=device)
+    a.set_volume_form(navier_stokes(("u", "v"), "p", nu=0.1))
+    generate_bdc(a, lambda var, x, grp, t: (
+        (True, 1.0 if x[1] > 1 - 1e-12 else 0.0) if var == "u"
+        else ((True, 0.0) if var == "v" else (False, 0.0))))
+    mask, vals = a.dirichlet_mask.copy(), a.dirichlet_values.copy()
+    mask[a.offsets["p"]] = True
+    vals[a.offsets["p"]] = 0.0
+    a.set_dirichlet(mask, vals)
+    u0 = torch.as_tensor(apply_dirichlet_values(a, np.zeros(a.n_dofs)),
+                         dtype=dtype, device=device)
+    tables = a.device_tables_cached()
+    R, data = a.make_assemble_fn(pass_tables=True)(u0, tables)
+    A = a.op_with(data, tables["ell_cols"])
+    note = {"path": "ell"}
+    if a.n_dofs >= 2048:
+        plan, note = bell_device_plan(a.pattern, "identity", device)
+        A = bell_backed(plan, A)
+    return a, A, R, note
+
+
+def fieldsplit_preconditioners(a, A) -> dict:
+    """The flat Schur split (Jacobi F-solve) and the nested tree of
+    tests/test_fieldsplit_tree.py (Vanka velocity leaf, Jacobi pressure
+    leaf, Schur "full", 12 Schur iterations)."""
+    from femus_tpu_torch.algebra import fieldsplit as fs
+
+    sv, sp_ = fs.splits_from_offsets(a, {"vel": ["u", "v"], "p": ["p"]})
+    N = fs.FieldSplitNode
+    tree = N("root", combine="schur", schur_fact="full", schur_iters=12,
+             children=[N("vel", vars=["u", "v"], pc="vanka", iters=2,
+                         vanka_block_elems=2),
+                       N("press", vars=["p"], pc="jacobi", iters=2)])
+    return {"flat": fs.schur_fieldsplit(A, sv, sp_, fs.jacobi_pc(A, sv.idx),
+                                        fact="full"),
+            "tree": fs.build_fieldsplit_tree(A, a, tree)}
+
+
+def phase_fieldsplit() -> dict:
+    """FGMRES(50) with FIELDSPLIT_RESTARTS restarts on the 128x128 cavity
+    Jacobian, once per preconditioner."""
+    from femus_tpu_torch.algebra.krylov import fgmres
+    from femus_tpu_torch.systems.system import launch_counts
+
+    t0 = time.perf_counter()
+    a, A, R, note = fieldsplit_cavity(FIELDSPLIT_N, "cuda", torch.float32)
+    Ms = fieldsplit_preconditioners(a, A)
+    torch.cuda.synchronize()
+    rep = {"phase": "fieldsplit", "n_dofs": a.n_dofs,
+           "nnz": int(a.pattern.nnz), "setup_s": time.perf_counter() - t0,
+           "routing": note, "restart": 50,
+           "max_restarts": FIELDSPLIT_RESTARTS}
+    reset_launches()
+    rnorm = float(torch.linalg.norm(R))
+    for name, M in Ms.items():
+        n0 = launch_counts()["bell_spmv"]
+        t0 = time.perf_counter()
+        d, info = fgmres(A.matvec, -R, M=M, tol=1e-8, restart=50,
+                         max_restarts=FIELDSPLIT_RESTARTS)
+        torch.cuda.synchronize()
+        rep[name] = {"seconds": time.perf_counter() - t0,
+                     "iters": info.iters, "converged": info.converged,
+                     "true_rel_residual": float(torch.linalg.norm(
+                         A @ d + R)) / rnorm,
+                     "finite": bool(torch.isfinite(d).all()),
+                     "bell_launches": launch_counts()["bell_spmv"] - n0}
+    rep["kernel_launches"] = launch_counts()
+    emit(rep)
+    if not (rep["flat"]["finite"] and rep["tree"]["finite"]):
+        raise AssertionError("fieldsplit: non-finite correction")
+    if not (rep["tree"]["true_rel_residual"]
+            <= 1.5 * rep["flat"]["true_rel_residual"]):
+        raise AssertionError("fieldsplit: the tree's residual is above "
+                             "1.5x the flat split's")
+    if rep["kernel_launches"]["bell_spmv"] <= 0:
+        raise AssertionError("fieldsplit: no B1 launch")
+    return rep
+
+
+def poisson_q2_solver(device, dtype):
+    """make_and_solve for convergence_study: Q2 Poisson -Lap u = 2 pi^2
+    sin(pi x) sin(pi y), homogeneous Dirichlet, operator="bell", MG-CG to
+    rtol 1e-12."""
+    from femus_tpu_torch.assembly.forms import poisson
+    from femus_tpu_torch.systems.problem import MultiLevelProblem
+    from femus_tpu_torch.systems.solution import MultiLevelSolution
+    from femus_tpu_torch.systems.system import LinearImplicitSystem
+
+    pi = np.pi
+
+    def make_and_solve(ml_mesh):
+        ml_sol = MultiLevelSolution(ml_mesh)
+        ml_sol.add_solution("u", "biquadratic")
+        ml_sol.initialize("u")
+        ml_sol.attach_bc(lambda var, x, grp, t: (True, 0.0))
+        ml_sol.generate_bdc("u")
+        prob = MultiLevelProblem(ml_mesh, ml_sol, quad_order="fifth")
+        sys_ = prob.add_system(LinearImplicitSystem, "P")
+        sys_.add_unknown("u")
+        sys_.set_assembly(poisson("u", rhs=lambda x: 2 * pi * pi
+                                  * torch.sin(pi * x[:, 0])
+                                  * torch.sin(pi * x[:, 1])))
+        cfg = sys_.config
+        cfg.operator = "bell"
+        cfg.outer = "cg"
+        cfg.rtol = 1e-12
+        sys_.init(device=device, dtype=dtype)
+        info = sys_.solve()
+        if not info["converged"]:
+            raise AssertionError(f"convergence: a solve missed rtol {info}")
+        return ml_sol, {"u": "biquadratic"}
+
+    return make_and_solve
+
+
+def phase_convergence() -> dict:
+    from femus_tpu_torch.mesh.generation import unit_box
+    from femus_tpu_torch.systems.fe_convergence import convergence_study
+    from femus_tpu_torch.systems.system import launch_counts
+
+    pi = np.pi
+
+    def exact(x):
+        return torch.sin(pi * x[:, 0]) * torch.sin(pi * x[:, 1])
+
+    def exact_grad(x):
+        return torch.stack([pi * torch.cos(pi * x[:, 0])
+                            * torch.sin(pi * x[:, 1]),
+                            pi * torch.sin(pi * x[:, 0])
+                            * torch.cos(pi * x[:, 1])], dim=-1)
+
+    reset_launches()
+    t0 = time.perf_counter()
+    res = convergence_study(poisson_q2_solver("cuda", torch.float64),
+                            unit_box((CONV_COARSE, CONV_COARSE)),
+                            CONV_LEVELS, {"u": exact}, {"u": exact_grad},
+                            device="cuda")
+    torch.cuda.synchronize()
+    rep = {"phase": "convergence", "seconds": time.perf_counter() - t0,
+           "finest_dofs": (2 * CONV_COARSE * 2 ** (CONV_LEVELS - 1) + 1) ** 2,
+           "l2_errors": res.l2_errors["u"], "h1_errors": res.h1_errors["u"],
+           "l2_orders": res.l2_orders["u"], "h1_orders": res.h1_orders["u"],
+           "kernel_launches": launch_counts()}
+    emit(rep)
+    if not (res.l2_orders["u"][-1] > 2.7 and res.h1_orders["u"][-1] > 1.8):
+        raise AssertionError(f"convergence: orders\n{res.report()}")
+    if rep["kernel_launches"]["bell_spmv"] <= 0:
+        raise AssertionError("convergence: no B1 launch")
+    return rep
+
+
+def phase_oc_reference() -> None:
+    """Card against host in float64 at unit_box((4,4)), 2 levels: the
+    distributed control after 3 PDAS iterations, the boundary control, the
+    bordered theta solve, and one application of each field-split
+    preconditioner to the same r on the 16x16 cavity (on the BELL frame on
+    the card)."""
+    got = {}
+    for device in ("cuda", "cpu"):
+        out = {}
+        sys_, ml_sol = oc_system("distributed", 4, 2, device, torch.float64,
+                                 1e-10)
+        sys_.set_control_bounds("u", *OC_BOUNDS, alpha=OC_ALPHA)
+        info = sys_.solve_pdas(max_iters=3)
+        out["pdas"] = np.concatenate([ml_sol.sol[-1][v] for v in "ylu"])
+        out["pdas_counts"] = [(h["active_hi"], h["active_lo"])
+                              for h in sys_.pdas_history]
+        sys_, ml_sol = oc_system("boundary", 4, 2, device, torch.float64,
+                                 1e-10)
+        sys_.solve()
+        out["boundary"] = np.concatenate([ml_sol.sol[-1][v] for v in "ylu"])
+        sys_, ml_sol = oc_system("theta", 4, 2, device, torch.float64, 1e-10)
+        sys_.solve()
+        out["theta"] = np.array([sys_.get_theta_value()])
+        a, A, _, _ = fieldsplit_cavity(16, device, torch.float64)
+        r = np.random.default_rng(5).standard_normal(a.n_dofs)
+        r[a.dirichlet_mask] = 0.0
+        for name, M in fieldsplit_preconditioners(a, A).items():
+            out["fieldsplit_" + name] = M(torch.as_tensor(
+                r, device=device)).cpu().numpy()
+        got[device] = out
+    rep = {"phase": "oc_reference",
+           "pdas_counts": {d: got[d]["pdas_counts"] for d in got}}
+    for k in ("pdas", "boundary", "theta", "fieldsplit_flat",
+              "fieldsplit_tree"):
+        ref = got["cpu"][k]
+        rep[k] = float(np.abs(got["cuda"][k] - ref).max()
+                       / max(np.abs(ref).max(), 1e-300))
+    emit(rep)
+    worst = max(rep[k] for k in ("pdas", "boundary", "theta",
+                                 "fieldsplit_flat", "fieldsplit_tree"))
+    if not (worst < 1e-8 and got["cuda"]["pdas_counts"]
+            == got["cpu"]["pdas_counts"]):
+        raise AssertionError(f"card and host slice-6 paths differ: {rep}")
 
 
 def fsi_system(coarse: int, levels: int, device, dtype, rtol: float,
@@ -1509,6 +2128,25 @@ def phase_fsi_reference() -> None:
         raise AssertionError(f"card and host FSI solutions differ: {rep}")
 
 
+def run_slice6(profile: bool = False) -> dict:
+    """The slice-6 phases in order; their reports by short name."""
+    osys, osol, _ = phase_oc_setup()
+    out = {"kernel": phase_kernel(osys, "oc_kernel")}
+    out["main"] = phase_oc_main(osys, osol)
+    if profile:
+        phase_profile(osys, torch.as_tensor(
+            osys.gather(-1), dtype=osys.dtype, device="cuda"),
+            "oc-distributed-128")
+    out["pdas"] = phase_oc_pdas(osys, osol)
+    del osys, osol
+    out["boundary"] = phase_oc_boundary()
+    phase_oc_theta()
+    out["fieldsplit"] = phase_fieldsplit()
+    out["convergence"] = phase_convergence()
+    phase_oc_reference()
+    return out
+
+
 def card_line() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1520,8 +2158,9 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", action="store_true",
                     help="also profile one Newton step, one patch solve "
-                         "step, one lattice CG solve and one FSI Newton "
-                         "step (device time by kernel, idle share)")
+                         "step, one lattice CG solve, one KKT solve step "
+                         "and one FSI Newton step (device time by kernel, "
+                         "idle share)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1579,6 +2218,9 @@ def main() -> int:
         del ops
         phase_lattice_reference()
         phase_cycles_reference()
+        # slice 6: block solvers, norms and convergence, face forms and
+        # optimal control on the BELL-frame operator
+        s6 = run_slice6(args.profile)
         # slice 5: monolithic FSI on the BELL-frame operator, steady and
         # transient
         fsys, fsol, fsetup = phase_fsi_setup()
@@ -1610,7 +2252,19 @@ def main() -> int:
         "fsi_launches": fmain["kernel_launches"]["bell_spmv"],
         "fsi_transient_launches": ftr["kernel_launches"]["bell_spmv"],
         "fsi_values": "f64",
-        **{"fsi_" + key: kf[key] for key in KERNEL_KEYS + ("fill",)}}, {
+        **{"fsi_" + key: kf[key] for key in KERNEL_KEYS + ("fill",)},
+        # and on the KKT operator (oc-distributed-128) and the slice-6
+        # paths
+        "oc_launches": s6["main"]["kernel_launches"]["bell_spmv"],
+        "oc_pdas_launches": s6["pdas"]["kernel_launches"]["bell_spmv"],
+        "oc_boundary_launches":
+            s6["boundary"]["kernel_launches"]["bell_spmv"],
+        "fieldsplit_launches":
+            s6["fieldsplit"]["kernel_launches"]["bell_spmv"],
+        "convergence_launches":
+            s6["convergence"]["kernel_launches"]["bell_spmv"],
+        **{"oc_" + key: s6["kernel"][key]
+           for key in KERNEL_KEYS + ("fill",)}}, {
         "name": "patch_stencil", "route": "cuda",
         "source": "femus_tpu_torch/algebra/csrc/patch_stencil.cu",
         "replaces": "femus_tpu/algebra/patchstencil.py:377",

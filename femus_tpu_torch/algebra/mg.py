@@ -58,8 +58,11 @@ class MGHierarchy:
     k_inner: int = 2                      # K-cycle inner FGMRES iterations
 
     def setup_coarse(self):
-        """Factor the dense coarsest operator once."""
-        self.coarse_lu = torch.linalg.lu_factor(self.levels[0].A.to_dense())
+        """Factor the dense coarsest operator once, in float32 when it is
+        stored in bfloat16 (there is no bfloat16 LU)."""
+        Ad = self.levels[0].A.to_dense()
+        self.coarse_lu = torch.linalg.lu_factor(
+            Ad.float() if Ad.dtype == torch.bfloat16 else Ad)
 
     def coarse_solve(self, b):
         if self.coarse_lu is not None:
@@ -168,11 +171,14 @@ class MGHierarchy:
         precision), the input residual is cast down, the cycle runs in
         that dtype, and the correction is cast back: the outer Krylov
         stays in the ambient precision, so only the convergence rate can
-        change, not the final accuracy."""
+        change, not the final accuracy.  bfloat16 is a storage type: its
+        operators and transfers hold bfloat16 values and the cycle's
+        vectors are float32 (kernel B1 multiplies bfloat16 values into a
+        float32 x)."""
         fn = {"V": self.v_cycle, "W": self.w_cycle, "F": self.f_cycle,
               "K": self.k_cycle, "ADDITIVE": self.additive_cycle,
               "KASKADE": self.kaskade_cycle}[cycle.upper()]
-        dt = self.compute_dtype
+        dt = vector_dtype(self.compute_dtype)
         if dt is None:
             return lambda r: fn(r)
         return lambda r: fn(r.to(dt)).to(r.dtype)
@@ -218,6 +224,12 @@ def _point_smoother(matvec: Callable, diag: torch.Tensor, smoother: str,
         return jacobi_smoother(matvec, safe, jacobi_omega, iters=1)
     lam = power_lambda_max(matvec, 1.0 / safe, diag.shape[0])
     return chebyshev_smoother(matvec, safe, lam, degree=cheb_degree)
+
+
+def vector_dtype(dtype: Optional[torch.dtype]) -> Optional[torch.dtype]:
+    """The dtype of a cycle's vectors for operators stored in ``dtype``:
+    float32 for bfloat16 storage, else ``dtype`` itself."""
+    return torch.float32 if dtype == torch.bfloat16 else dtype
 
 
 def _cast(op: SparseOp, dtype: torch.dtype) -> SparseOp:
@@ -295,8 +307,9 @@ def build_hierarchy(fine_op: SparseOp,
                     A, (lambda r, _s=sm: _s(r, torch.zeros_like(r))),
                     m=krylov_m)
         else:
-            sm = _point_smoother(A.matvec, A.diagonal(), smoother,
-                                 jacobi_omega, cheb_degree)
+            d = A.diagonal()
+            sm = _point_smoother(A.matvec, d.to(vector_dtype(d.dtype)),
+                                 smoother, jacobi_omega, cheb_degree)
         P, R = pr[l - 1] if l > 0 else (None, None)
         levels.append(MGLevel(A, P, R, sm))
     h = MGHierarchy(levels, n_pre, n_post, compute_dtype=compute_dtype)

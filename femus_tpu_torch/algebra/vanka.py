@@ -140,8 +140,10 @@ def lut_with_miss(pattern: EllPattern):
 def _invert_blocks(A, dofs: torch.Tensor, slots: torch.Tensor, n: int):
     """Explicit batched block inverses (batched LU, then LU solves of the
     identity), so each smoother application is one batched dense matvec.
-    Padding rows/cols of a block become identity."""
-    data = A.data
+    Padding rows/cols of a block become identity.  Blocks of bfloat16
+    values are inverted in float32 (there is no bfloat16 LU), and the
+    inverses stay float32, the dtype of the cycle's vectors."""
+    data = A.data.float() if A.data.dtype == torch.bfloat16 else A.data
     flat = torch.cat([data.reshape(-1), data.new_zeros(1)])
     Ab = flat[slots]                                   # (nb, bs, bs)
     rows_valid = dofs < n                              # (nb, bs)

@@ -34,7 +34,8 @@ from ..algebra.patchstencil import (K, apply_dirichlet, build_patch_slots,
 from ..algebra.sparse import EllPattern, SparseOp, pattern_from_pairs
 from ..fe.geom import GEOMS
 from ..fe.quadrature import gauss
-from ..fe.tabulate import tabulate
+from ..fe.basis import get_basis
+from ..fe.tabulate import face_trace_nodes, tabulate
 
 GEO_FAMILY = "biquadratic"   # isoparametric geometry representation
 
@@ -139,6 +140,92 @@ class ElemOpsBatched:
                             s * self.wdet)
 
 
+def _face_geometry(gdphi, weights, coords, dim):
+    """(unit outward normal (nq, dim), weights x surface measure (nq,)) of
+    one boundary face from its geometry-trace node coordinates (the face's
+    tangents; the trace's node order makes the normal point out)."""
+    T = torch.einsum("qnd,nx->qdx", gdphi, coords - coords.mean(dim=0))
+    if dim == 2:
+        t = T[:, 0, :]
+        ds = torch.linalg.norm(t, dim=-1)
+        n = torch.stack([t[:, 1], -t[:, 0]], dim=-1) / ds[:, None]
+    elif dim == 3:
+        cr = torch.linalg.cross(T[:, 0, :], T[:, 1, :])
+        ds = torch.linalg.norm(cr, dim=-1)
+        n = cr / ds[:, None]
+    else:
+        ds = torch.ones_like(weights)
+        n = torch.ones_like(weights)[:, None]
+    return n, weights * ds
+
+
+class FaceOps:
+    """Per-boundary-face quadrature operations (surface integrals; analogue
+    of the reference's JacobianSur, ElemType.hpp:330-360).  Built inside
+    ``torch.func.vmap`` over the faces of a batch, so every array is one
+    face's: ``x`` (nq, dim), ``normal`` (nq, dim), ``wds`` (nq,)."""
+
+    def __init__(self, tabs, weights, coords, dim, sign):
+        gphi, gdphi = tabs[GEO_FAMILY]
+        self.x = gphi @ coords                            # (nq, dim)
+        n, self.wds = _face_geometry(gdphi, weights, coords, dim)
+        self.normal = n * sign
+        self._phi = {f: t[0] for f, t in tabs.items()}
+
+    def value(self, fam, u):
+        return self._phi[fam] @ u
+
+    def t(self, fam, s):
+        """integral_face s * phi_i ds."""
+        return self._phi[fam].T @ (self.wds * s)
+
+
+class VolumeFaceOps:
+    """Face quadrature with the owning ELEMENT's trial space: values,
+    physical gradients and normal derivatives of volume basis functions on
+    a boundary face (Nitsche, DG-type terms).  Geometry (normal, surface
+    measure) comes from the face trace like :class:`FaceOps`; trial data
+    from the volume tabulation at the face quadrature points."""
+
+    def __init__(self, vtabs, ftabs, weights, ecoords, fcoords, dim, sign):
+        gphi, gdphi = ftabs[GEO_FAMILY]
+        self.x = gphi @ fcoords
+        n, self.wds = _face_geometry(gdphi, weights, fcoords, dim)
+        self.normal = n * sign
+        self._vtabs = vtabs
+        _, vgdphi = vtabs[GEO_FAMILY]
+        # J[q, d, x] = dx_x / dxi_d of the owning element at the face qps
+        J = torch.einsum("qnd,nx->qdx", vgdphi,
+                         ecoords - ecoords.mean(dim=0))
+        self._invJ = torch.linalg.inv(J)                  # [q, x, d]
+        # characteristic face size for penalty scaling: measure^(1/(dim-1))
+        measure = self.wds.sum()
+        self.h = measure if dim <= 2 else torch.sqrt(measure)
+
+    def _dphi(self, fam):
+        """Physical gradients of the volume basis: (nq, nd, dim)."""
+        return torch.einsum("qnd,qxd->qnx", self._vtabs[fam][1], self._invJ)
+
+    def value(self, fam, ue):
+        return self._vtabs[fam][0] @ ue
+
+    def grad(self, fam, ue):
+        return torch.einsum("qnx,n->qx", self._dphi(fam), ue)
+
+    def dn(self, fam, ue):
+        """normal derivative du/dn at the face qps."""
+        return (self.grad(fam, ue) * self.normal).sum(dim=-1)
+
+    def t(self, fam, s):
+        """integral s * phi_i ds over element-local dofs."""
+        return self._vtabs[fam][0].T @ (self.wds * s)
+
+    def tn(self, fam, s):
+        """integral s * dphi_i/dn ds (symmetrizing Nitsche term)."""
+        dn = torch.einsum("qnx,qx->qn", self._dphi(fam), self.normal)
+        return dn.T @ (self.wds * s)
+
+
 class Assembler:
     """Assembles residual + Jacobian for a set of unknowns on one mesh level,
     with tensors on ``device`` in ``dtype`` (default float64 on the host,
@@ -210,6 +297,9 @@ class Assembler:
         self.dirichlet_mask = np.zeros(self.n_dofs, bool)
         self.dirichlet_values = np.zeros(self.n_dofs)
         self.volume_form: Optional[Callable] = None
+        self.face_form: Optional[Callable] = None
+        self.face_form_volume = False
+        self.face_batches: List[dict] = []
         # element-local auxiliary fields (name, family): global dof vectors
         # of another field the form reads per element as aux[name] (nd, ne)
         self.aux_field_specs: List[Tuple[str, str]] = []
@@ -249,6 +339,9 @@ class Assembler:
         if self.stack_perm is not None:
             raise ValueError("patch layout: needs the stacked (not "
                              "interleaved) dof layout")
+        if self.face_form is not None:
+            raise ValueError("patch matrix layout: face forms are not "
+                             "supported")
         nv = len(self.unknowns)
         tab = build_patch_tables(plan)
         assert tab.n * nv == self.n_dofs, (tab.n, nv, self.n_dofs)
@@ -278,6 +371,27 @@ class Assembler:
         """fn(ops: ElemOpsBatched, u: dict, aux: dict) -> dict name -> (nd, ne)."""
         self.volume_form = fn
 
+    def set_face_form(self, fn: Callable, volume: bool = False) -> None:
+        """fn(fops: FaceOps, u: dict, fams: dict, group, aux: dict) -> dict:
+        boundary-face residuals on face-local dofs (``u[name]`` (nd_face,),
+        ``fams[name]`` the face trace's family, ``group`` the face's group
+        as a 0-d tensor), one face at a time under ``torch.func.vmap``.
+
+        volume=True: the form needs the owning ELEMENT's trial space on the
+        face (normal derivatives, Nitsche/DG terms): it is called as
+        fn(fops: VolumeFaceOps, u, group, aux) with element-local dof
+        vectors, and returns residuals per element-local dof (reference
+        boundary loops that call the volume ``JacobianSur``,
+        03_navier_stokes.hpp:193-301).  Group selectors inside a form are
+        written ``(grp == g).to(dtype)`` or ``torch.where(grp == g, ...)``."""
+        if self.patch_tab is not None:
+            raise ValueError("patch matrix layout: face forms are not "
+                             "supported")
+        self.face_form = fn
+        self.face_form_volume = volume
+        self._build_face_tables()
+        self._tables_cache = None
+
     def add_aux_field(self, name: str, family: str) -> None:
         """Let the form read the global ``family`` dof vector passed as
         ``aux_fields[name]`` as its element-local values ``aux[name]``."""
@@ -286,6 +400,141 @@ class Assembler:
 
     def _split(self, u_flat: torch.Tensor) -> Dict[str, torch.Tensor]:
         return {u.name: u_flat[self.local_slices[u.name]] for u in self.unknowns}
+
+    # ------------------------------------------------------------------
+    def _build_face_tables(self) -> None:
+        """Per-boundary-face gather tables and tabulations, one batch per
+        (face group geometry, local face id)."""
+        self.face_batches = []
+        mesh = self.mesh
+        g = GEOMS[mesh.geom]
+        for fg, bf in mesh.boundary.items():
+            if len(bf.elem) == 0:
+                continue
+            pts, w = gauss(fg, self.quad_order)
+            for iface in np.unique(bf.iface):
+                sel = np.where(bf.iface == iface)[0]
+                elems = bf.elem[sel]
+                fams, fdof_parts, fslices = {}, [], {}
+                loc0 = 0
+                for u in self.unknowns:
+                    ff, lidx = face_trace_nodes(mesh.geom, u.family,
+                                                int(iface))
+                    fams[u.name] = ff
+                    sl = self.local_slices[u.name]
+                    fdof_parts.append(self.edofs[elems][:, sl][:, lidx])
+                    fslices[u.name] = slice(loc0, loc0 + len(lidx))
+                    loc0 += len(lidx)
+                gff, glidx = face_trace_nodes(mesh.geom, GEO_FAMILY,
+                                              int(iface))
+                tabs = {}
+                for fam in {gff} | set(fams.values()):
+                    t = tabulate(fg, fam, self.quad_order)
+                    tabs[fam] = (t.phi, t.dphi)
+                tabs[GEO_FAMILY] = tabs[gff]
+                batch = dict(
+                    fgeom=fg, iface=int(iface),
+                    fdofs=np.concatenate(fdof_parts, axis=1).astype(np.int32),
+                    fslices=fslices, fams=fams, ndf=loc0,
+                    coords=mesh.coords[self.geo_conn[elems][:, glidx]],
+                    groups=np.asarray(bf.group[sel]), tabs=tabs,
+                    weights=np.asarray(w))
+                if self.face_form_volume:
+                    # volume trial space at the face quadrature points:
+                    # face-ref -> volume-ref through the face's bq nodes
+                    fgeo, f_bq = g.faces[int(iface)]
+                    xi_vol = np.asarray(get_basis(fgeo, GEO_FAMILY).eval(
+                        pts)) @ np.asarray(g.ref_nodes[np.asarray(f_bq)])
+                    batch["vtabs"] = {}
+                    for fam in {u.family for u in self.unknowns} | {
+                            GEO_FAMILY}:
+                        vb = get_basis(mesh.geom, fam)
+                        batch["vtabs"][fam] = (np.asarray(vb.eval(xi_vol)),
+                                               np.asarray(vb.eval_grad(
+                                                   xi_vol)))
+                    batch["eidx"] = self.edofs[elems]
+                    batch["ecoords"] = self.coords_e[elems]
+                self.face_batches.append(batch)
+
+    def _face_slots(self, batch) -> np.ndarray:
+        """(nf, nd, nd) flat ELL slot of every face-Jacobian entry, on the
+        physical pattern (face dofs, or all element dofs for a volume face
+        form)."""
+        if "slots" not in batch:
+            lut = _build_slot_lut(self.pattern)
+            fd = batch["eidx"] if self.face_form_volume else batch["fdofs"]
+            n = fd.shape[1]
+            rows = np.repeat(fd, n, axis=1).ravel()
+            cols = np.tile(fd, (1, n)).ravel()
+            batch["slots"] = lut(rows, cols).reshape(fd.shape[0], n, n)
+        return batch["slots"]
+
+    def _face_residual(self, batch, tabs, weights, u_flat, coords, grp,
+                       aux_scalars):
+        """One face's residual on its face-local dofs (plain face form)."""
+        fops = FaceOps(tabs, weights, coords, self.dim, 1.0)
+        u = {name: u_flat[sl] for name, sl in batch["fslices"].items()}
+        out = self.face_form(fops, u, batch["fams"], grp, dict(aux_scalars))
+        parts = []
+        for un in self.unknowns:
+            r = out.get(un.name)
+            if r is None:
+                sl = batch["fslices"][un.name]
+                r = u_flat.new_zeros(sl.stop - sl.start)
+            parts.append(r)
+        return torch.cat(parts)
+
+    def _volume_face_residual(self, vtabs, tabs, weights, ue, ecoords,
+                              fcoords, grp, aux_scalars):
+        """One face's residual on its element-local dofs (volume face
+        form)."""
+        fops = VolumeFaceOps(vtabs, tabs, weights, ecoords, fcoords,
+                             self.dim, 1.0)
+        out = self.face_form(fops, self._split(ue), grp, dict(aux_scalars))
+        parts = []
+        for un in self.unknowns:
+            r = out.get(un.name)
+            if r is None:
+                sl = self.local_slices[un.name]
+                r = ue.new_zeros(sl.stop - sl.start)
+            parts.append(r)
+        return torch.cat(parts)
+
+    def _add_faces(self, u, tables, aux_scalars, R, data,
+                   with_jacobian: bool):
+        """Add the boundary-face residuals to ``R`` and, with
+        ``with_jacobian``, their Jacobians (``torch.func.jacfwd``: forward
+        derivatives along the face's local dof tangents) to the flat ELL
+        ``data`` through the face slots."""
+        aux_scalars = aux_scalars or {}
+        for b, bt in zip(self.face_batches, tables["faces"]):
+            if self.face_form_volume:
+                dofs = bt["eidx"]
+
+                def fone(ue, ecl, fcl, grp, _bt=bt):
+                    return self._volume_face_residual(
+                        _bt["vtabs"], _bt["tabs"], _bt["weights"], ue, ecl,
+                        fcl, grp, aux_scalars)
+
+                args = (u[dofs], bt["ecoords"], bt["coords"], bt["groups"])
+            else:
+                dofs = bt["fdofs"]
+
+                def fone(ul, cl, grp, _b=b, _bt=bt):
+                    return self._face_residual(_b, _bt["tabs"],
+                                               _bt["weights"], ul, cl, grp,
+                                               aux_scalars)
+
+                args = (u[dofs], bt["coords"], bt["groups"])
+            if with_jacobian:
+                # one pass: the residual rides along as jacfwd's aux
+                jf, rf = torch.func.vmap(torch.func.jacfwd(
+                    lambda *a, _f=fone: (_f(*a),) * 2, has_aux=True))(*args)
+                data = data.index_add(0, bt["slots"], jf.reshape(-1))
+            else:
+                rf = torch.func.vmap(fone)(*args)
+            R = R.index_add(0, dofs.reshape(-1), rf.reshape(-1))
+        return R, data
 
     # ------------------------------------------------------------------
     def device_tables_cached(self) -> dict:
@@ -314,7 +563,21 @@ class Assembler:
             "qweights": flt(self.qweights_np),
             "aux_conn": {name: i64(self.mesh.dofmap(fam).conn)
                          for name, fam in self.aux_field_specs},
+            "faces": [],
         }
+        if self.face_form is not None:
+            for b in self.face_batches:
+                ft = {"fdofs": i64(b["fdofs"]), "coords": flt(b["coords"]),
+                      "groups": i64(b["groups"]), "weights": flt(b["weights"]),
+                      "tabs": {f: (flt(p), flt(d))
+                               for f, (p, d) in b["tabs"].items()},
+                      "slots": i64(self._face_slots(b).reshape(-1))}
+                if self.face_form_volume:
+                    ft["eidx"] = i64(b["eidx"])
+                    ft["ecoords"] = flt(b["ecoords"])
+                    ft["vtabs"] = {f: (flt(p), flt(d))
+                                   for f, (p, d) in b["vtabs"].items()}
+                t["faces"].append(ft)
         if self.patch_tab is not None:
             tab = self.patch_tab
             t["patch_slots"] = i64(self._patch_slots.reshape(-1))
@@ -413,20 +676,29 @@ class Assembler:
         def assemble_t(u, tables, aux_scalars=None, aux_fields=None):
             rT, jacT = self.element_terms(u, tables, aux_scalars,
                                           with_jacobian, aux_fields)
-            R = torch.where(tables["dir_mask"], 0.0,
-                            self._scatter_rows(tables, rT))
+            R = self._scatter_rows(tables, rT)
+            data = None
+            if with_jacobian:
+                jac = jacT.permute(2, 1, 0).reshape(-1)   # (ne, ndt_i, ndt_j)
+                if self.patch_tab is not None:
+                    # every element scatters into its own patch's lattice
+                    # slots
+                    data = torch.zeros(self._patch_size, dtype=self.dtype,
+                                       device=self.device)
+                    return (torch.where(tables["dir_mask"], 0.0, R),
+                            data.index_add_(0, tables["patch_slots"], jac))
+                nrows, w = self.pattern.n_rows, self.pattern.width
+                data = torch.zeros(nrows * w, dtype=self.dtype,
+                                   device=self.device)
+                data.index_add_(0, tables["slots"], jac)
+            if self.face_form is not None:
+                R, data = self._add_faces(
+                    u.to(device=self.device, dtype=self.dtype), tables,
+                    aux_scalars, R, data, with_jacobian)
+            R = torch.where(tables["dir_mask"], 0.0, R)
             if not with_jacobian:
                 return R, None
-            jac = jacT.permute(2, 1, 0).reshape(-1)   # (ne, ndt_i, ndt_j)
-            if self.patch_tab is not None:
-                # every element scatters into its own patch's lattice slots
-                data = torch.zeros(self._patch_size, dtype=self.dtype,
-                                   device=self.device)
-                return R, data.index_add_(0, tables["patch_slots"], jac)
-            nrows, w = self.pattern.n_rows, self.pattern.width
-            data = torch.zeros(nrows * w, dtype=self.dtype, device=self.device)
-            data.index_add_(0, tables["slots"], jac)
-            data = data.view(nrows, w)
+            data = data.view(self.pattern.n_rows, self.pattern.width)
             data = torch.where(tables["dir_bad"], tables["dir_ident"], data)
             return R, data
 
@@ -462,6 +734,11 @@ class Assembler:
         element residuals are linearised once (``torch.func.linearize``,
         element-local, so neither the gather nor the ``index_add_`` scatter
         is differentiated); each ``jv`` is gather -> linear map -> scatter."""
+
+        if self.face_form is not None:
+            raise NotImplementedError("the linearised residual covers the "
+                                      "volume form only: face forms need "
+                                      "an assembled operator")
 
         def lin_t(u, tables, aux_scalars=None, aux_fields=None):
             all_elems = self._element_fn(tables, aux_scalars, aux_fields)

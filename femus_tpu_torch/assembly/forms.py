@@ -1,5 +1,6 @@
 """Ready-made weak forms (Poisson, mass, nonlinear diffusion, steady
-Navier–Stokes, elasticity).
+Navier–Stokes, elasticity) and boundary-face forms (Neumann fluxes,
+Nitsche's weak Dirichlet condition).
 
 Each form is a pure function ``form(ops, u, aux) -> {var: residual}`` over
 :class:`~femus_tpu_torch.assembly.engine.ElemOpsBatched`; Jacobians come
@@ -10,7 +11,7 @@ u <- u + delta with J delta = -R.
 """
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable, Dict, Optional, Sequence
 
 import torch
 
@@ -179,3 +180,51 @@ def elasticity(disp=("dx", "dy"), family: str = "biquadratic",
         return out
 
     return form
+
+
+# ---- boundary-face forms (Assembler.set_face_form) -------------------------
+
+def neumann_faces(flux: Dict[int, Callable], var: str = "u"):
+    """Neumann surface term: -integral g phi ds on faces of given groups.
+
+    flux: group -> g(x (nq, dim), normal (nq, dim)) returning (nq,).
+    """
+
+    def form(fops, u, fams, grp, aux):
+        fam = fams[var]
+        r = torch.zeros_like(u[var])
+        for g, fn in flux.items():
+            gq = fn(fops.x, fops.normal)
+            r = r + torch.where(grp == g, -fops.t(fam, gq), 0.0)
+        return {var: r}
+
+    return form
+
+
+def nitsche_dirichlet(var: str = "u", family: str = "biquadratic",
+                      g_fn: Optional[Callable] = None, gamma: float = 20.0,
+                      kappa: float = 1.0, groups: Optional[Sequence] = None):
+    """Weak Dirichlet enforcement by Nitsche's method (reference ``Nitsche``
+    application): on boundary faces (optionally restricted to ``groups``)
+
+      - kappa du/dn v  - kappa dv/dn (u - g)  + gamma kappa / h (u - g) v
+
+    Use with ``Assembler.set_face_form(form, volume=True)``: the terms need
+    the owning element's trial space (VolumeFaceOps).  No strong Dirichlet
+    rows are eliminated; convergence is optimal for gamma large enough
+    (scales with the polynomial degree squared)."""
+
+    def face_form(fops, u, grp, aux):
+        uq = fops.value(family, u[var])
+        dn = fops.dn(family, u[var])
+        gq = g_fn(fops.x) if g_fn is not None else 0.0
+        mism = uq - gq
+        sel = 1.0
+        if groups is not None:
+            sel = sum((grp == g0).to(uq.dtype) for g0 in groups)
+        r = (-kappa * fops.t(family, dn * sel)
+             - kappa * fops.tn(family, mism * sel)
+             + gamma * kappa / fops.h * fops.t(family, mism * sel))
+        return {var: r}
+
+    return face_form

@@ -96,6 +96,9 @@ def make_lattice_assemble_fn(asm, plan: LatticePlan) -> Callable:
     slice adds; applies the engine's symmetric Dirichlet elimination
     directly on the stencil slabs, with masks built here, once, on the
     assembler's device."""
+    if asm.face_form is not None:
+        raise NotImplementedError("lattice assembly: face forms are not "
+                                  "supported")
     N, M = plan.grid
     ney, nex = plan.egrid
     s = plan.s

@@ -19,6 +19,7 @@ import functools
 import numpy as np
 
 from .basis import get_basis
+from .geom import GEOMS
 from .quadrature import gauss
 
 
@@ -49,3 +50,23 @@ def tabulate(geom: str, family: str, order) -> Tabulation:
     return Tabulation(geom, family, pts, w,
                       np.asarray(b.eval(pts), np.float64),
                       np.asarray(b.eval_grad(pts), np.float64))
+
+
+def face_trace_nodes(geom: str, family: str, iface: int):
+    """(face_family, local volume-node ids) whose trace forms the face
+    element's nodal basis, ordered per the face geometry's node order.
+
+    The trace family can degrade: tet10/wedge18 tri faces carry no centroid
+    bubble, so their trace of ``biquadratic`` is tri6 (``serendipity``)."""
+    g = GEOMS[geom]
+    fgeom_name, f_bq_ids = g.faces[iface]
+    fg = GEOMS[fgeom_name]
+    f_bq = np.asarray(f_bq_ids)
+    face_family = family
+    if len(fg.family_nodes.get(family, ())) > len(f_bq):
+        face_family = "serendipity"
+    face_local = fg.family_nodes[face_family]      # face-geom local ids
+    vol_bq = f_bq[face_local]                      # volume biquadratic ids
+    fam_nodes = g.family_nodes[family]
+    inv = {int(n): i for i, n in enumerate(fam_nodes)}
+    return face_family, np.array([inv[int(v)] for v in vol_bq], int)

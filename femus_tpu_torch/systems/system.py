@@ -42,6 +42,25 @@ def launch_counts() -> Dict[str, int]:
     return {name: fn.launches for name, fn in KERNELS.items()}
 
 
+def bell_device_plan(pattern, order: str = "identity", device="cuda"):
+    """(device plan, routing note) of an operator pattern: the sliced-ELL
+    layout in the BELL frame, identity (``order="identity"``, rebuilt with
+    RCM when the identity slab would exceed 24 B per nonzero) or RCM."""
+    plan = build_bell_plan(pattern,
+                           perm="identity" if order == "identity" else None)
+    note = {"order": order}
+    if order == "identity" and plan.nnz_bytes_ratio > 24.0:
+        ratio = plan.nnz_bytes_ratio
+        plan = build_bell_plan(pattern)        # RCM rescue
+        note = {"order": "rcm-rescue",
+                "reason": f"identity slab {ratio:.1f} B/nnz > 24.0, "
+                          f"rebuilt with RCM ({plan.nnz_bytes_ratio:.1f})"}
+    sell = plan.sell()
+    note = {"path": "bell", "kernel": "bell_spmv", "sigma": sell.sigma,
+            "fill": round(sell.fill, 4), **note}
+    return sell.to_device(resolve_device(device)), note
+
+
 @dataclasses.dataclass
 class SolverConfig:
     outer: str = "gmres"            # "gmres" | "cg"
@@ -112,8 +131,9 @@ class SolverConfig:
 
 class StepOut(NamedTuple):
     """One solve step: the new state, the correction, the linear solve's
-    final residual, iterations and convergence, ||R(u)|| at the input, and
-    the residual norm the linear solve's stopping test aimed at."""
+    final residual, iterations and convergence, ||R(u)|| at the input, the
+    residual norm the linear solve's stopping test aimed at, and the
+    columns D = A^{-1} B of the step's ``extra_rhs`` B (None without)."""
     u: torch.Tensor
     delta: torch.Tensor
     lin_res: float
@@ -121,6 +141,7 @@ class StepOut(NamedTuple):
     res_norm: float
     converged: bool
     lin_target: float
+    extra: Optional[torch.Tensor] = None
 
 
 class System:
@@ -131,6 +152,7 @@ class System:
         self.name = name
         self.unknown_names: List[str] = []
         self.volume_form: Optional[Callable] = None
+        self.face_form: Optional[Callable] = None
         # element-local aux fields: (solution var, alias, use its old value)
         self.aux_specs: List[Tuple[str, str, bool]] = []
         self.aux_scalars: Dict[str, float] = {}
@@ -142,9 +164,12 @@ class System:
     def add_unknown(self, *names: str) -> None:
         self.unknown_names.extend(names)
 
-    def set_assembly(self, volume_form: Callable) -> None:
-        """The weak form (a pure function, see assembly/forms.py)."""
+    def set_assembly(self, volume_form: Callable,
+                     face_form: Optional[Callable] = None) -> None:
+        """The weak form (a pure function, see assembly/forms.py) and an
+        optional boundary-face form (``Assembler.set_face_form``)."""
         self.volume_form = volume_form
+        self.face_form = face_form
 
     def add_aux_field(self, sol_var: str, alias: Optional[str] = None,
                       old: bool = False) -> None:
@@ -206,6 +231,8 @@ class System:
             if (cfg.operator == "patch"
                     and getattr(mesh, "patch_plan", None) is not None):
                 a.set_patch_layout(mesh.patch_plan)
+            if self.face_form is not None:
+                a.set_face_form(self.face_form)
             for svar, alias, _ in self.aux_specs:
                 a.add_aux_field(alias, ml_sol.vars[svar].family)
             mask = np.zeros(a.n_dofs, bool)
@@ -317,22 +344,10 @@ class System:
             return None
         # EllPattern has identity equality: the pattern object is the key
         if pattern not in self._bell_plans:
-            order = self.config.bell_order
-            plan = build_bell_plan(
-                pattern, perm="identity" if order == "identity" else None)
-            note = {"order": order}
-            if order == "identity" and plan.nnz_bytes_ratio > 24.0:
-                ratio = plan.nnz_bytes_ratio
-                plan = build_bell_plan(pattern)        # RCM rescue
-                note = {"order": "rcm-rescue",
-                        "reason": f"identity slab {ratio:.1f} B/nnz > 24.0, "
-                                  f"rebuilt with RCM "
-                                  f"({plan.nnz_bytes_ratio:.1f})"}
-            sell = plan.sell()
-            self._route_note(n_rows=pattern.n_rows, path="bell",
-                             kernel="bell_spmv", sigma=sell.sigma,
-                             fill=round(sell.fill, 4), **note)
-            self._bell_plans[pattern] = sell.to_device(self.device)
+            dev, note = bell_device_plan(pattern, self.config.bell_order,
+                                         self.device)
+            self._route_note(n_rows=pattern.n_rows, **note)
+            self._bell_plans[pattern] = dev
         return self._bell_plans[pattern]
 
     # ---- transfers ---------------------------------------------------------
@@ -415,12 +430,16 @@ class System:
 
     # ---- per-level solve step ----------------------------------------------
     def step_fn(self, level: int = -1, device=None) -> Callable:
-        """(u, tables=None, aux_scalars=None, aux_fields=None) ->
-        :class:`StepOut`.  ``aux_fields`` (the level's element-local aux
-        fields) default to :meth:`_aux_arrays` read at the call, never at
-        the build: a cached step reads the old values of the current time
-        step.  ``device``: None or the device the system was initialised
-        on."""
+        """(u, tables=None, aux_scalars=None, aux_fields=None,
+        extra_rhs=None) -> :class:`StepOut`.  ``aux_fields`` (the level's
+        element-local aux fields) default to :meth:`_aux_arrays` read at
+        the call, never at the build: a cached step reads the old values of
+        the current time step.  ``extra_rhs`` (n, k): k more right-hand
+        sides B, each solved by the same outer solve with the same
+        preconditioner (one dense solve with k columns on a coarse-direct
+        level); their solutions D = A^{-1} B come back as ``extra`` (the
+        bordered solves of scalar global unknowns).  ``device``: None or
+        the device the system was initialised on."""
         self._check_device(device)
         n_levels = len(self.ml_mesh.levels)
         if level < 0:
@@ -504,11 +523,15 @@ class System:
                                self._bell_dev(t[2].coarse_pattern)
                                for l, t in enumerate(transfers)] + [None]
 
-        def step(u, tables=None, aux_scalars=None, aux_fields=None):
+        def step(u, tables=None, aux_scalars=None, aux_fields=None,
+                 extra_rhs=None):
             tables = a.device_tables_cached() if tables is None else tables
             if aux_fields is None:
                 aux_fields = self._aux_arrays(level)
             u = u.to(device=self.device, dtype=self.dtype)
+            if extra_rhs is not None:
+                extra_rhs = torch.as_tensor(extra_rhs, dtype=self.dtype,
+                                            device=self.device)
             R, data = assemble(u, tables, aux_scalars, aux_fields)
             res_norm = float(torch.linalg.norm(R))
             A = a.op_with(data, tables.get("ell_cols"))
@@ -518,8 +541,10 @@ class System:
                 Ad = A.to_dense()
                 delta = torch.linalg.solve(Ad, -R)
                 res = float(torch.linalg.norm(R + A @ delta))
+                D = (None if extra_rhs is None
+                     else torch.linalg.solve(Ad, extra_rhs))
                 return StepOut(u + delta, delta, res, 1, res_norm, True,
-                               max(cfg.rtol * res_norm, cfg.atol))
+                               max(cfg.rtol * res_norm, cfg.atol), D)
             if rediscretize:
                 # each coarse level assembled on its own mesh at the
                 # averaged-restricted state
@@ -559,8 +584,13 @@ class System:
                 dsafe = torch.where(d.abs() < 1e-30, 1.0, d)
                 M = lambda r: r / dsafe
             delta, info = self._outer_solve(A.matvec, -R, M)
+            D = None
+            if extra_rhs is not None:
+                D = torch.stack([self._outer_solve(A.matvec, extra_rhs[:, j],
+                                                   M)[0]
+                                 for j in range(extra_rhs.shape[1])], dim=1)
             return StepOut(u + delta, delta, info.residual, info.iters,
-                           res_norm, info.converged, info.target)
+                           res_norm, info.converged, info.target, D)
 
         self._step_fns[level] = step
         return step

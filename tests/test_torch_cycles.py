@@ -122,10 +122,12 @@ def _asm(eng, forms, bc, mesh, problem, **kw):
     return a
 
 
-def _hierarchies(problem, smoother, levels, **kw):
+def _hierarchies(problem, smoother, levels, jax_side=True, **kw):
     """One Galerkin hierarchy from each package on the same fine operator
     (a seeded state's Jacobian, assembled by the JAX package): ``levels``
-    mesh levels from unit_box((4, 4)), PtAP chains built top-down."""
+    mesh levels from unit_box((4, 4)), PtAP chains built top-down.  With
+    ``jax_side=False`` only the port's hierarchy is built (None for the
+    JAX one)."""
     jm, tm = JMLM(junit_box((4, 4)), levels), TMLM(tunit_box((4, 4)), levels)
     ja = [_asm(jeng, jforms, jbc, m, problem) for m in jm.levels]
     ta = [_asm(teng, tforms, tbc, m, problem, device="cpu")
@@ -166,11 +168,13 @@ def _hierarchies(problem, smoother, levels, **kw):
         vb_t = [tva.build_element_blocks(
             ta[l], 2, pattern=tt[l][2].coarse_pattern if l < levels - 1
             else None, device="cpu") for l in range(levels)]
-    jkw = {k: (jnp.float32 if k == "compute_dtype" else v)
+    jdt = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}
+    jkw = {k: (jdt[v] if k == "compute_dtype" else v)
            for k, v in kw.items()}
     hj = jmg.build_hierarchy(
         jop, jt, smoother=smoother, vanka_blocks=vb_j,
-        dir_masks=[jnp.asarray(a.dirichlet_mask) for a in ja[:-1]], **jkw)
+        dir_masks=[jnp.asarray(a.dirichlet_mask) for a in ja[:-1]],
+        **jkw) if jax_side else None
     ht = tmg.build_hierarchy(
         top, tt, smoother=smoother, vanka_blocks=vb_t,
         dir_masks=[a.dirichlet_mask for a in ta[:-1]], device="cpu", **kw)
@@ -221,6 +225,56 @@ def test_mixed_precision_cycle_matches_jax():
     got = ht.as_preconditioner("V")(torch.as_tensor(r))
     assert got.dtype == torch.float64
     _close(got.numpy(), ref, 1e-5)
+
+
+def test_bf16_cycle_builds_and_matches_jax():
+    """compute_dtype=bfloat16: operators and transfers are stored in
+    bfloat16, the dense coarsest operator is LU-factored in float32 (there
+    is no bfloat16 LU) and the cycle's vectors are float32.  One V-cycle
+    lies within bfloat16 rounding of the float64 cycle, no further than
+    the JAX package's bfloat16 cycle (bfloat16 vectors); an outer CG with it reaches the float64
+    solution to 1e-9 within the iteration budget of the JAX package's
+    bfloat16 test (tests/test_mg.py::test_mixed_precision_vcycle)."""
+    jop, top, hj, ht = _hierarchies("poisson", "chebyshev", 3,
+                                    compute_dtype=torch.bfloat16)
+    _, _, _, h64 = _hierarchies("poisson", "chebyshev", 3)
+    assert ht.levels[-1].A.data.dtype == torch.bfloat16
+    assert ht.levels[1].P.data.dtype == torch.bfloat16
+    assert ht.coarse_lu[0].dtype == torch.float32
+    r = np.random.default_rng(5).standard_normal(jop.n_rows)
+    got = ht.as_preconditioner("V")(torch.as_tensor(r))
+    assert got.dtype == torch.float64
+    ref64 = h64.as_preconditioner("V")(torch.as_tensor(r)).numpy()
+    ref_j = np.asarray(hj.as_preconditioner("V")(jnp.asarray(r)),
+                       np.float64)
+    err_t = np.abs(got.numpy() - ref64).max() / np.abs(ref64).max()
+    err_j = np.abs(ref_j - ref64).max() / np.abs(ref64).max()
+    # the bfloat16 values dominate: both packages' cycles sit ~7e-2 from
+    # the float64 cycle, the port's no further than the JAX package's
+    assert err_t < 1e-1 and err_t <= 1.1 * err_j, (err_t, err_j)
+    b = torch.as_tensor(np.random.default_rng(6).standard_normal(
+        jop.n_rows))
+    x64, i64 = tkry.cg(top.matvec, b, M=h64.as_preconditioner("V"),
+                       tol=1e-11, maxiter=200)
+    xlo, ilo = tkry.cg(top.matvec, b, M=ht.as_preconditioner("V"),
+                       tol=1e-11, maxiter=200)
+    assert ilo.converged and ilo.iters <= 2 * i64.iters + 6, (ilo, i64)
+    np.testing.assert_allclose(xlo.numpy(), x64.numpy(), rtol=0, atol=1e-9)
+
+
+def test_vanka_bf16_blocks_invert_in_float32():
+    """A Vanka-smoothed bfloat16 hierarchy (cavity, 2 levels) builds: its
+    blocks are inverted in float32 and one cycle stays within bfloat16
+    rounding of the float64 one (the JAX package cannot build this one:
+    its host LAPACK takes no bfloat16 block inverse)."""
+    _, top, _, ht = _hierarchies("ns", "vanka", 2, jax_side=False,
+                                 compute_dtype=torch.bfloat16)
+    _, _, _, h64 = _hierarchies("ns", "vanka", 2, jax_side=False)
+    r = torch.as_tensor(np.random.default_rng(5).standard_normal(
+        top.n_rows))
+    got = ht.as_preconditioner("V")(r).numpy()
+    ref = h64.as_preconditioner("V")(r).numpy()
+    assert np.abs(got - ref).max() < 5e-2 * np.abs(ref).max()
 
 
 def test_vanka_gmres_smoother_matches_jax():

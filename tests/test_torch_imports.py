@@ -50,6 +50,16 @@ def test_fsi_and_transient_modules_are_covered():
         assert f"femus_tpu_torch.{m}" in mods, m
 
 
+def test_slice6_modules_are_covered():
+    """The block-solver, norm, convergence and optimal-control modules are
+    among those the import checks walk."""
+    mods = set(_modules())
+    for m in ("algebra.fieldsplit", "assembly.norms",
+              "systems.fe_convergence", "systems.optimal_control",
+              "fe.tabulate", "assembly.forms"):
+        assert f"femus_tpu_torch.{m}" in mods, m
+
+
 def test_no_source_file_imports_the_jax_package():
     for dirpath, _, files in os.walk(PKG_DIR):
         for f in files:
@@ -113,6 +123,35 @@ def test_entry_points_raise_without_cuda(no_cuda):
         sys_.solve(device="cuda")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         sys_.step_fn(device="cuda")
+
+
+def test_norm_entry_points_raise_without_cuda(no_cuda):
+    """error_norms, l2_norm_field, integrate_field, integrate and
+    cost_functional run on the card unless asked for the host."""
+    from femus_tpu_torch.assembly import norms
+    from femus_tpu_torch.mesh.generation import unit_box
+    from femus_tpu_torch.systems.optimal_control import cost_functional
+
+    mesh = unit_box((2, 2))
+    u = np.ones(mesh.dofmap("biquadratic").n_dofs)
+    one = lambda x: 1.0 + 0.0 * x[:, 0]            # noqa: E731
+    calls = {
+        "error_norms": lambda **kw: norms.error_norms(
+            mesh, "biquadratic", u, one, **kw),
+        "l2_norm_field": lambda **kw: norms.l2_norm_field(
+            mesh, "biquadratic", u, **kw),
+        "integrate_field": lambda **kw: norms.integrate_field(
+            mesh, "biquadratic", u, **kw),
+        "integrate": lambda **kw: norms.integrate(mesh, one, **kw),
+        "cost_functional": lambda **kw: cost_functional(
+            mesh, "biquadratic", u, u, one, 1e-3, **kw)}
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+        call(device="cpu")
+    assert norms.integrate(mesh, one, device="cpu") == pytest.approx(1.0)
+    assert norms.integrate_field(mesh, "biquadratic", u, device="cpu") == \
+        pytest.approx(1.0)
 
 
 def test_cuda_matvec_never_falls_back_to_the_host(monkeypatch):

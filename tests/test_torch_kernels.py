@@ -423,3 +423,101 @@ def test_patch_bound_counts_what_the_kernel_reads(H, P):
         4 * (read + 2 * n) + 4 * tables, 2 * read)
     assert patch_kernel_work(H, P, 4, n, tables, nv=2) == (
         4 * (4 * read + 4 * n) + 4 * tables, 8 * read)
+
+
+# ---- slice 6: block solvers, face assembly and the bf16 cycle on the card
+
+def _fieldsplit_cases(device, dtype):
+    """The field-split cavity (unit_box((16,16)), 2,467 dofs) on the BELL
+    frame (kernel B1 on the card) and as the plain ELL operator, and the
+    flat and nested preconditioners over each."""
+    import os
+    import sys
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    from chip_smoke import fieldsplit_cavity, fieldsplit_preconditioners
+    from femus_tpu_torch.algebra.sparse import SparseOp
+
+    a, A, _, note = fieldsplit_cavity(16, device, dtype)
+    assert note["path"] == "bell"
+    plain = SparseOp(A.data, A.cols, A.n_cols)
+    return (a, fieldsplit_preconditioners(a, A),
+            fieldsplit_preconditioners(a, plain))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-5),
+                                        (torch.float64, 1e-12)])
+def test_fieldsplit_on_bell_matches_plain(cuda, dtype, rtol):
+    """One application of the flat Schur split and of the nested tree with
+    every matvec through B1, against the same trees on the ELL operator."""
+    a, on_bell, on_ell = _fieldsplit_cases(cuda, dtype)
+    r = torch.as_tensor(np.random.default_rng(5).standard_normal(a.n_dofs),
+                        dtype=dtype, device=cuda)
+    r[torch.as_tensor(a.dirichlet_mask, device=cuda)] = 0.0
+    for name in on_bell:
+        n0 = bell.spmv_bell_cuda.launches
+        z_k = on_bell[name](r)
+        assert bell.spmv_bell_cuda.launches > n0
+        z_p = on_ell[name](r)
+        err = float((z_k - z_p).abs().max())
+        assert err <= rtol * float(z_p.abs().max()), (name, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("volume", [False, True])
+def test_face_assembly_on_card_matches_host(cuda, volume):
+    """R and the Jacobian with a face form (boundary-control KKT faces,
+    or the Nitsche form) on the card against the host, in float64."""
+    from femus_tpu_torch.assembly.forms import nitsche_dirichlet
+    from femus_tpu_torch.systems.optimal_control import (
+        boundary_control_forms)
+
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        a = Assembler(unit_box((6, 6)), [Unknown("y"), Unknown("l"),
+                                         Unknown("u")],
+                      dtype=torch.float64, device=dev)
+        vol, face = boundary_control_forms(
+            y_target=lambda x: torch.sin(np.pi * x[:, 0]), alpha=1e-2,
+            control_groups=(2,))
+        a.set_volume_form(vol)
+        if volume:
+            a.set_face_form(nitsche_dirichlet("y", groups=(1, 3)),
+                            volume=True)
+        else:
+            a.set_face_form(face)
+        u = torch.as_tensor(np.random.default_rng(3).standard_normal(
+            a.n_dofs), device=dev)
+        R, data = a.make_assemble_fn()(u)
+        out[dev.type] = (R.cpu(), data.cpu())
+    for k in range(2):
+        ref = out["cpu"][k]
+        assert float((out["cuda"][k] - ref).abs().max()) <= \
+            1e-12 * float(ref.abs().max())
+
+
+@pytest.mark.cuda
+def test_bf16_cycle_on_card(cuda):
+    """compute_dtype=bfloat16 with BELL plans: B1 multiplies bfloat16
+    values into float32 vectors, the coarse LU is float32; the outer
+    GMRES converges to the float32 V-cycle's solution of the small
+    cavity."""
+    import os
+    import sys
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    from chip_smoke import bf16_newton, cavity_system
+
+    ref_sys, ref_sol = cavity_system(4, 3, cuda, torch.float32, rtol=1e-6,
+                                     max_nonlinear=3)
+    ref_sys.solve()
+    sys_, sol = cavity_system(4, 3, cuda, torch.float32, rtol=1e-6,
+                              max_nonlinear=3)
+    n0 = bell.spmv_bell_cuda.launches
+    hist = bf16_newton(sys_)
+    assert bell.spmv_bell_cuda.launches > n0
+    assert all(h["converged"] for h in hist)
+    f = np.concatenate([sol.sol[-1][n] for n in ("u", "v", "p")])
+    ref = np.concatenate([ref_sol.sol[-1][n] for n in ("u", "v", "p")])
+    assert np.linalg.norm(f - ref) <= 1e-3 * np.linalg.norm(ref)
