@@ -87,10 +87,16 @@ poisson-patch-1M) and the solver routes beside the V-cycle:
 13. lattice_reference — set-up, sweep and CG solve at n=16 on the card
                      (float32) and the host (float64) must agree;
 14. cycles_reference — the small cavity on the card with mg_cycle W, F and
-                     K (K through FGMRES), with operator="matrix_free" and
-                     with the V-cycle built in bfloat16 (``bf16_newton``:
-                     B1 on bfloat16 values, the coarse LU in float32) must
-                     converge and agree with the V-cycle solve.
+                     K (K through FGMRES), with operator="matrix_free",
+                     with stacked dofs and rediscretized coarse levels
+                     (Vanka on each level's own pattern, B1 on the two finer
+                     levels), with that hierarchy and the matrix-free one
+                     built with compute_dtype=bfloat16 (``cycle_dtype``),
+                     and with the V-cycle built in bfloat16
+                     (``bf16_newton``: B1 on bfloat16 values, the coarse LU
+                     in float32) must converge and agree with the V-cycle
+                     solve; a Neumann problem through a face form with
+                     operator="matrix_free" must agree with "assembled".
 
 Slice 6, block solvers, norms, boundary-face forms and optimal control on
 the BELL-frame operator (kernel B1; see ``oc_system``, constants OC_*):
@@ -167,12 +173,44 @@ material-split Vanka (see ``fsi_system``):
                     unit_box((4,4)), 2 levels: the card (FSI_DTYPE) against
                     the host (float64), every field to 1e-3 relative.
 
+Slice 7, rediscretized coarse levels for the BELL operator and adaptive
+mesh refinement with multigrid across the AMR levels (kernel B1):
+
+29. rediscretize  — right after phase 4: cavity-128 with stacked dofs and
+                    coarse_op="rediscretize" (every coarse level assembled
+                    on its own mesh at the restricted state each Newton
+                    step, Vanka on its own pattern, B1 on every level of
+                    at least 2048 rows): GMRES iterations and seconds per
+                    step beside cavity-128's; gates: every linear solve
+                    meets rtol, ||R(u)|| falls at least 10^3x, B1 launched
+                    on every such level (``b1_tally``), u, v and p within
+                    1e-3 of cavity-128's Galerkin solution;
+30. amr_cycle, amr_kernel, amr — after phase 23: amr-lshape (see
+                    ``lshape_mesh``, ``lshape_exact``, constants AMR_*), 8
+                    cycles of solve_mg_amr over the chain (float64,
+                    Chebyshev V-cycle CG to 1e-10, B1 on every reduced level
+                    but the LU-solved coarsest), Kelly, refine the worst 20 %:
+                    per cycle elements, dofs, hanging dofs, iterations,
+                    residual, L2 error, host set-up and solve seconds, B1
+                    launches by level; B1 on the finest reduced operator
+                    against its plain version; solve_conforming on the last
+                    cycle of at most 20k dofs; gates: every CG converges
+                    (AMR_MAX_ITERS, AMR_ITER_GROWTH), the L2 error falls
+                    every cycle, elements two levels deep, multigrid under
+                    a third of the diagonal-CG iterations and equal to it
+                    to 1e-9;
+31. amr_reference — a 3-cycle chain from unit_box((4,4)): solve_mg_amr on
+                    the card and on the host in float64 agree to 1e-10 with
+                    equal iteration counts.
+
 Then the card's name and power limit, the kernel table as one JSON line,
 and the final status line.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
+import functools
 import json
 import subprocess
 import sys
@@ -251,6 +289,22 @@ OC_OFF_GC_MAX = 1e-3
 FIELDSPLIT_N, FIELDSPLIT_RESTARTS = 128, 6
 # the convergence study: unit_box((4,4)) through 6 levels (finest 128x128)
 CONV_COARSE, CONV_LEVELS = 4, 6
+
+
+# slice 7: amr-lshape, the corner singularity of tests/test_amr.py from
+# box((32, 32)) on (-1, 1)^2 minus (0, 1)^2 (768 quads): AMR_CYCLES cycles
+# of solve_mg_amr -> Kelly -> refine the worst AMR_FRACTION; MG-CG to the
+# relative AMR_TOL in float64.  Up to AMR_CONFORMING_MAX_DOFS dofs (the
+# scale of tests/test_mg_amr.py) every cycle's CG takes at most
+# AMR_MAX_ITERS iterations, and the last such cycle is held against the
+# single-level diagonal CG of solve_conforming; beyond it the multigrid
+# across AMR levels takes 0-3 more iterations per cycle, in the JAX
+# package too (15, 18, 18 at 21k, 34k, 54k dofs on the host,
+# tools/amr_lshape_iterations.py; 21 at 87k), so there a cycle may take
+# at most AMR_ITER_GROWTH more than the one before
+AMR_COARSE, AMR_CYCLES, AMR_FRACTION = 32, 8, 0.2
+AMR_TOL, AMR_MAX_ITERS, AMR_CONFORMING_MAX_DOFS = 1e-10, 15, 20000
+AMR_ITER_GROWTH = 4
 
 
 # the measured keys of a row of the final kernel table
@@ -433,15 +487,22 @@ def phase_kernel(sys_, phase: str = "kernel",
     """B1 against its plain version on a main path's fine operator at its
     initial state, in the device plan the solve itself uses: values in each
     of ``dtypes`` from the assembly, float64 on random data."""
-    from femus_tpu_torch.algebra import bell
-
     a = sys_.assemblers[-1]
     u0 = torch.as_tensor(sys_.gather(-1), dtype=sys_.dtype,
                          device=sys_.device)
     _, data = a.make_assemble_fn(pass_tables=True)(
         u0, a.device_tables_cached())
-    dev = sys_._bell_dev(a.pattern)
-    n, nnz = dev.n, int(a.pattern.nnz)
+    return b1_rows(data, a.pattern, sys_._bell_dev(a.pattern), phase, dtypes)
+
+
+def b1_rows(data, pattern, dev, phase: str, dtypes) -> dict:
+    """B1 against its plain version on the ELL operator ``data`` of
+    ``pattern`` in the device plan ``dev``: values in each of ``dtypes``,
+    float64 on random data; cold time, plain time, HBM bound and one
+    torch.sparse CSR matvec of the same matrix in the same types."""
+    from femus_tpu_torch.algebra import bell
+
+    n, nnz = dev.n, int(pattern.nnz)
     gen = torch.Generator(device="cpu").manual_seed(0)
     x = torch.randn(n, generator=gen, dtype=torch.float32).cuda()
     out = {"n": n, "nnz": nnz, "format": "sell-32-sigma",
@@ -462,8 +523,8 @@ def phase_kernel(sys_, phase: str = "kernel",
                     bell.spmv_bell_cuda(op, xv), y_k))}
 
     rows = {}
-    valid = torch.as_tensor(a.pattern.valid, device="cuda")
-    cols = torch.as_tensor(a.pattern.cols, dtype=torch.int64, device="cuda")
+    valid = torch.as_tensor(pattern.valid, device="cuda")
+    cols = torch.as_tensor(pattern.cols, dtype=torch.int64, device="cuda")
     counts = valid.sum(dim=1)
     crow = torch.cat([counts.new_zeros(1), counts.cumsum(0)])
     for name, dt in dtypes:
@@ -1258,17 +1319,34 @@ def phase_lattice_reference() -> None:
 
 def phase_cycles_reference() -> None:
     """The small cavity on the card through the solver routes beside the
-    V-cycle: each must converge and agree with the V-cycle solve."""
+    V-cycle: each must converge and agree with the V-cycle solve.  The
+    routes: mg_cycle W, F, K (FGMRES); operator="matrix_free"; stacked
+    dofs with rediscretized coarse levels (Vanka on each level's own
+    pattern, B1 on the two finer levels), and that hierarchy built with
+    compute_dtype=bfloat16; the matrix-free hierarchy built with
+    compute_dtype=bfloat16; the V-cycle built with bfloat16
+    (``bf16_newton``).  Then a Neumann problem through a face form:
+    operator="matrix_free" against "assembled"."""
+    from femus_tpu_torch.systems.system import launch_counts
+
+    stacked = {"interleave_dofs": False}
     routes = {"V": {}, "W": {"mg_cycle": "W"}, "F": {"mg_cycle": "F"},
               "K": {"mg_cycle": "K"},
-              "matrix_free": {"operator": "matrix_free",
-                              "interleave_dofs": False}}
+              "matrix_free": {"operator": "matrix_free", **stacked},
+              "rediscretize": {"coarse_op": "rediscretize", **stacked},
+              "rediscretize_bf16": {"coarse_op": "rediscretize", **stacked},
+              "matrix_free_bf16": {"operator": "matrix_free", **stacked}}
+    bf16_builder = {"rediscretize_bf16": "build_hierarchy_from_ops",
+                    "matrix_free_bf16": "build_hierarchy_matfree"}
     rep = {"phase": "cycles_reference"}
     ref = None
     for name, config in routes.items():
         sys_, ml_sol = cavity_system(8, 3, "cuda", torch.float32, rtol=1e-6,
                                      max_nonlinear=4, **config)
-        sys_.solve()
+        n0 = launch_counts()["bell_spmv"]
+        with (cycle_dtype(bf16_builder[name], torch.bfloat16)
+              if name in bf16_builder else contextlib.nullcontext()):
+            sys_.solve()
         fields = np.concatenate([ml_sol.sol[-1][n] for n in ("u", "v", "p")])
         ref = fields if ref is None else ref
         rep[name] = {
@@ -1276,9 +1354,11 @@ def phase_cycles_reference() -> None:
             "converged": all(h["converged"] for h in sys_.history),
             "rel_diff": float(np.linalg.norm(fields - ref)
                               / np.linalg.norm(ref)),
-            "outer": ("fgmres" if name == "K" else "gmres")}
+            "outer": ("fgmres" if name == "K" else "gmres"),
+            "b1_launches": launch_counts()["bell_spmv"] - n0}
+        if name.startswith("rediscretize"):
+            rep[name]["bell_levels"] = sorted(_bell_rows(sys_))
     # the bf16 route: the V-cycle built with compute_dtype=bfloat16
-    from femus_tpu_torch.systems.system import launch_counts
     sys_, ml_sol = cavity_system(8, 3, "cuda", torch.float32, rtol=1e-6,
                                  max_nonlinear=4)
     n0 = launch_counts()["bell_spmv"]
@@ -1290,14 +1370,64 @@ def phase_cycles_reference() -> None:
                                      / np.linalg.norm(ref)),
                    "outer": "gmres", "coarse_lu": "float32",
                    "b1_launches": launch_counts()["bell_spmv"] - n0}
+    # a face form through the matrix-free operator
+    faces = {op: neumann_solve(op) for op in ("matrix_free", "assembled")}
+    u_mf, u_as = faces["matrix_free"][0], faces["assembled"][0]
+    rep["matrix_free_faces"] = {
+        "converged": all(f[1]["converged"] for f in faces.values()),
+        "gmres_iters": {op: f[1]["iters"] for op, f in faces.items()},
+        "rel_diff": float(np.linalg.norm(u_mf - u_as)
+                          / np.linalg.norm(u_as)),
+        "max_err_vs_exact": faces["matrix_free"][2]}
     rep["n_dofs"] = int(ref.size)
     emit(rep)
-    for name in list(routes) + ["bf16"]:
+    for name in list(routes) + ["bf16", "matrix_free_faces"]:
         if not (rep[name]["converged"] and rep[name]["rel_diff"] < 1e-3):
             raise AssertionError(f"cycles_reference: route {name} failed: "
                                  f"{rep[name]}")
-    if rep["bf16"]["b1_launches"] <= 0:
-        raise AssertionError("cycles_reference: the bf16 route ran no B1")
+    for name in ("bf16", "rediscretize", "rediscretize_bf16"):
+        if rep[name]["b1_launches"] <= 0:
+            raise AssertionError(f"cycles_reference: the {name} route ran "
+                                 "no B1")
+    for name in ("rediscretize", "rediscretize_bf16"):
+        if rep[name]["bell_levels"] != [2946, 11522]:
+            raise AssertionError(f"cycles_reference: {name} routing "
+                                 f"{rep[name]['bell_levels']}")
+
+
+def neumann_solve(operator: str, coarse: int = 8, levels: int = 3,
+                  device="cuda", dtype=torch.float32):
+    """tests/test_poisson.py's Neumann problem as a system (on the card in
+    float32 by default): -Lap u = -4 on unit_box((coarse, coarse)) refined to
+    ``levels`` levels, u = x^2 + y^2 on three sides, du/dn = 2 on x = 1
+    through the face form; (u, solve info, max nodal error)."""
+    from femus_tpu_torch.assembly.forms import neumann_faces, poisson
+    from femus_tpu_torch.mesh.generation import unit_box
+    from femus_tpu_torch.mesh.multilevel import MultiLevelMesh
+    from femus_tpu_torch.systems.problem import MultiLevelProblem
+    from femus_tpu_torch.systems.solution import MultiLevelSolution
+    from femus_tpu_torch.systems.system import LinearImplicitSystem
+
+    ml_mesh = MultiLevelMesh(unit_box((coarse, coarse)), levels)
+    ml_sol = MultiLevelSolution(ml_mesh)
+    ml_sol.add_solution("u", "biquadratic")
+    ml_sol.initialize("u")
+    ml_sol.attach_bc(lambda var, x, grp, t: (
+        (False, 0.0) if grp == 2 else (True, float(x[0] ** 2 + x[1] ** 2))))
+    ml_sol.generate_bdc("u")
+    prob = MultiLevelProblem(ml_mesh, ml_sol, quad_order="fifth")
+    sys_ = prob.add_system(LinearImplicitSystem, "P")
+    sys_.add_unknown("u")
+    sys_.set_assembly(poisson("u", rhs=lambda x: -4.0 + 0.0 * x[:, 0]),
+                      neumann_faces({2: lambda x, nrm: 2.0 + 0.0 * x[:, 0]},
+                                    "u"))
+    sys_.config.operator = operator
+    sys_.config.rtol = 1e-6
+    sys_.init(device=device, dtype=dtype)
+    info = sys_.solve()
+    u = ml_sol.sol[-1]["u"].copy()
+    xy = ml_mesh.levels[-1].node_coords_of("biquadratic")
+    return u, info, float(np.abs(u - (xy ** 2).sum(axis=1)).max())
 
 
 def bf16_newton(sys_) -> list:
@@ -2147,6 +2277,312 @@ def run_slice6(profile: bool = False) -> dict:
     return out
 
 
+@contextlib.contextmanager
+def b1_tally():
+    """B1 launches by the row count of the operator launched on, while the
+    block runs: a shim around ``BellOp.matvec_frame``, which launches B1
+    once for a CUDA vector (the kernel's wrapper keeps its own count)."""
+    from femus_tpu_torch.algebra import bell
+    orig, tally = bell.BellOp.matvec_frame, {}
+
+    def shim(op, xf):
+        y = orig(op, xf)
+        if xf.is_cuda:
+            tally[op.dev.n] = tally.get(op.dev.n, 0) + 1
+        return y
+
+    bell.BellOp.matvec_frame = shim
+    try:
+        yield tally
+    finally:
+        bell.BellOp.matvec_frame = orig
+
+
+@contextlib.contextmanager
+def cycle_dtype(builder: str, dtype):
+    """Build the system layer's ``builder`` hierarchies
+    (build_hierarchy_from_ops, build_hierarchy_matfree) with
+    ``compute_dtype=dtype`` while the block runs (SolverConfig has no
+    compute_dtype)."""
+    from femus_tpu_torch.systems import system
+    orig = getattr(system, builder)
+    setattr(system, builder, functools.partial(orig, compute_dtype=dtype))
+    try:
+        yield
+    finally:
+        setattr(system, builder, orig)
+
+
+def _bell_rows(sys_) -> set:
+    """Row counts of the operators a system routed onto the BELL frame."""
+    return {n["n_rows"] for n in sys_.solver_info()["routing"]
+            if n.get("path") == "bell"}
+
+
+def phase_rediscretize(galerkin: dict) -> dict:
+    """cavity-128-rediscretize: cavity-128 with stacked dofs, every coarse
+    level re-assembled on its own mesh at the restricted state per Newton
+    step (Vanka on each level's own pattern, B1 on every level above 2048
+    rows); against cavity-128's Galerkin solution of this run
+    (``galerkin``: its fields and Newton history)."""
+    from femus_tpu_torch.systems.system import launch_counts
+
+    t0 = time.perf_counter()
+    sys_, ml_sol = cavity_system(COARSE_CELLS, LEVELS, "cuda", torch.float32,
+                                 rtol=1e-4, max_nonlinear=5,
+                                 interleave_dofs=False,
+                                 coarse_op="rediscretize")
+    setup_s = time.perf_counter() - t0
+    reset_launches()
+    with b1_tally() as tally:
+        t0 = time.perf_counter()
+        sys_.solve()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    hist = sys_.history
+    launches = launch_counts()["bell_spmv"]
+    drop = hist[0]["res_norm"] / max(hist[-1]["res_norm"], 1e-300)
+    bell_rows = sorted(_bell_rows(sys_))
+    rel = {n: float(np.linalg.norm(ml_sol.sol[-1][n] - galerkin["fields"][n])
+                    / max(np.linalg.norm(galerkin["fields"][n]), 1e-300))
+           for n in ("u", "v", "p")}
+    rep = {"phase": "rediscretize", "setup_s": setup_s, "wall_s": wall,
+           "levels": [a.n_dofs for a in sys_.assemblers],
+           "gmres_iters": [h["lin_iters"] for h in hist],
+           "step_seconds": [h["seconds"] for h in hist],
+           "galerkin_gmres_iters": [h["lin_iters"]
+                                    for h in galerkin["history"]],
+           "galerkin_step_seconds": [h["seconds"]
+                                     for h in galerkin["history"]],
+           "res_norms": [h["res_norm"] for h in hist],
+           "res_norm_drop": drop,
+           "all_converged": all(h["converged"] for h in hist),
+           "b1_launches_by_rows": {str(k): v for k, v in
+                                   sorted(tally.items())},
+           "bell_levels": bell_rows, "rel_diff_vs_galerkin": rel,
+           "kernel_launches": launch_counts(),
+           "routing": sys_.solver_info()["routing"]}
+    emit(rep)
+    if not rep["all_converged"]:
+        raise AssertionError("rediscretize: a linear solve missed its rtol")
+    if not drop >= 1e3:
+        raise AssertionError(f"rediscretize: ||R(u)|| fell only {drop:.3g}x")
+    levels = [a.n_dofs for a in sys_.assemblers]
+    want = {n for n in levels[1:] if n >= 2048}
+    if not (want and set(bell_rows) == want
+            and all(tally.get(n, 0) > 0 for n in want)):
+        raise AssertionError("rediscretize: B1 did not run on every level "
+                             f"above the threshold: {tally}, {levels}")
+    if not max(rel.values()) < 1e-3:
+        raise AssertionError(f"rediscretize: differs from Galerkin: {rel}")
+    return {**rep, "launches": launches}
+
+
+def lshape_mesh(n: int):
+    """(-1, 1)^2 minus (0, 1)^2 from box((n, n)) (tests/test_amr.py's
+    L-shape at n = 2 before its refine), one boundary group."""
+    from femus_tpu_torch.mesh.generation import box
+    from femus_tpu_torch.mesh.mesh import Mesh, build_boundary_faces
+
+    m0 = box((n, n), [(-1.0, 1.0), (-1.0, 1.0)], "quad")
+    cent = m0.coords[m0.conn[:, :4]].mean(axis=1)
+    keep = ~((cent[:, 0] > 0) & (cent[:, 1] > 0))
+    used = np.unique(m0.conn[keep])
+    remap = -np.ones(m0.coords.shape[0], np.int64)
+    remap[used] = np.arange(len(used))
+    m = Mesh(dim=2, geom="quad", coords=m0.coords[used],
+             conn=remap[m0.conn[keep]].astype(np.int32),
+             elem_group=m0.elem_group[keep])
+    build_boundary_faces(m, group_fn=lambda c: 1)
+    return m
+
+
+def lshape_exact(x, xp=np):
+    """The corner singularity u = r^(2/3) sin(2 phi / 3) of the L-shape,
+    phi = theta - pi/2 in [0, 3 pi/2] measured from the positive y axis
+    through the domain to the positive x axis: harmonic in the domain,
+    zero on both re-entrant edges.  (tests/test_amr.py writes
+    sin(2 (theta + pi/2) / 3) with theta cut at -pi/2, a cut that runs
+    through this domain along x = 0, y < 0: that function jumps by up to
+    0.87 r^(2/3) there and solves no boundary-value problem on it.)"""
+    atan2 = np.arctan2 if xp is np else torch.atan2
+    th = atan2(x[:, 1], x[:, 0])
+    # theta in [pi/2, 5 pi/2): the cut lies in the removed quadrant
+    th = xp.where(th < np.pi / 2 - 1e-12, th + 2 * np.pi, th)
+    return xp.hypot(x[:, 0], x[:, 1]) ** (2.0 / 3) * xp.sin(
+        2 * (th - np.pi / 2) / 3)
+
+
+def amr_problem():
+    """(unknowns, volume form, bc) of Q2 Poisson with the exact L-shape
+    solution as Dirichlet data on the whole boundary."""
+    from femus_tpu_torch.assembly.engine import Unknown
+    from femus_tpu_torch.assembly.forms import poisson
+
+    def bc(var, x, grp, t):
+        return True, float(lshape_exact(x[None, :])[0])
+
+    return [Unknown("u")], poisson("u"), bc
+
+
+def phase_amr() -> dict:
+    """amr-lshape: AMR_CYCLES cycles of solve_mg_amr over the chain so far
+    (float64, B1 on every reduced level but the LU-solved coarsest), Kelly,
+    flag_by_error(AMR_FRACTION, "fraction"), refine_selective; per cycle
+    elements, dofs, hanging dofs, iterations, residual, L2 error, host
+    set-up and solve seconds, B1 launches by level; then B1 on the finest
+    reduced operator, and solve_conforming on the last cycle with at most
+    AMR_CONFORMING_MAX_DOFS dofs."""
+    from femus_tpu_torch.assembly.norms import error_norms
+    from femus_tpu_torch.mesh.amr import flag_by_error, refine_selective
+    from femus_tpu_torch.systems import amr
+    from femus_tpu_torch.systems.system import (bell_device_plan,
+                                                launch_counts)
+
+    problem = amr_problem()
+    meshes = [lshape_mesh(AMR_COARSE)]
+    cycles, check = [], None
+    reset_launches()
+    t_all = time.perf_counter()
+    for cyc in range(AMR_CYCLES):
+        m = meshes[-1]
+        n0 = launch_counts()["bell_spmv"]
+        with b1_tally() as tally:
+            u, info = amr.solve_mg_amr(meshes, *problem, tol=AMR_TOL,
+                                       device="cuda", dtype=torch.float64)
+        n_dofs = m.dofmap("biquadratic").n_dofs
+        l2, _ = error_norms(m, "biquadratic", torch.as_tensor(
+            u[:n_dofs], device="cuda"), lambda x: lshape_exact(x, torch),
+            device="cuda")
+        t0 = time.perf_counter()
+        eta = amr.kelly_indicator(m, "biquadratic", u[:n_dofs])
+        row = {"cycle": cyc, "elements": m.n_elems, "dofs": n_dofs,
+               "hanging": info["n_hanging"], "levels": info["n_levels"],
+               "cg_iters": info["iterations"],
+               "residual": info["residual"], "target": info["target"],
+               "converged": info["converged"], "l2_error": l2,
+               "max_elem_level": int(np.max(m.elem_level))
+               if m.elem_level is not None else 0,
+               "setup_s": info["setup_seconds"],
+               "solve_s": info["solve_seconds"],
+               "kelly_s": time.perf_counter() - t0,
+               "b1_launches": launch_counts()["bell_spmv"] - n0,
+               "b1_launches_by_rows": {str(k): v for k, v in
+                                       sorted(tally.items())},
+               "routing": [(r["n_rows"], r["path"])
+                           for r in info["routing"]]}
+        emit({"phase": "amr_cycle", **row})
+        cycles.append(row)
+        if n_dofs <= AMR_CONFORMING_MAX_DOFS:
+            check = (m, u, info["iterations"], cyc)
+        if cyc < AMR_CYCLES - 1:
+            t0 = time.perf_counter()
+            meshes.append(refine_selective(m, flag_by_error(
+                eta, AMR_FRACTION, mode="fraction")))
+            row["refine_s"] = time.perf_counter() - t0
+    wall = time.perf_counter() - t_all
+    launches = launch_counts()["bell_spmv"]
+    # the single-level diagonal CG on the largest mesh it stays cheap on
+    m, u_mg, mg_iters, cyc = check
+    t0 = time.perf_counter()
+    u_sc, info_sc = amr.solve_conforming(m, *problem, tol=AMR_TOL,
+                                         maxiter=20000, device="cuda",
+                                         dtype=torch.float64)
+    conforming = {"cycle": cyc, "dofs": m.dofmap("biquadratic").n_dofs,
+                  "mg_iters": mg_iters, "cg_iters": info_sc["iterations"],
+                  "seconds": time.perf_counter() - t0,
+                  "rel_diff": float(np.linalg.norm(u_mg - u_sc)
+                                    / np.linalg.norm(u_sc))}
+    # B1 on the finest reduced operator, in the plan the solve builds
+    asm, C, free_idx, mask_f, sched = amr._reduced_system(
+        meshes[-1], *problem, device="cuda", dtype=torch.float64)
+    A, _, _ = amr._reduced_op(asm, C, free_idx, mask_f, sched, amr._start(
+        asm, C, free_idx, torch.float64, torch.device("cuda")))
+    dev, _ = bell_device_plan(sched.coarse_pattern, "identity", "cuda")
+    k = b1_rows(A.data, sched.coarse_pattern, dev, "amr_kernel",
+                (("f64", torch.float64),))
+    del A, asm, sched, dev
+    errs = [c["l2_error"] for c in cycles]
+    rep = {"phase": "amr", "wall_s": wall, "cycles": len(cycles),
+           "finest_elements": cycles[-1]["elements"],
+           "finest_dofs": cycles[-1]["dofs"], "l2_errors": errs,
+           "cg_iters": [c["cg_iters"] for c in cycles],
+           "setup_s": [c["setup_s"] for c in cycles],
+           "solve_s": [c["solve_s"] for c in cycles],
+           "conforming": conforming, "kernel_launches": launch_counts()}
+    emit(rep)
+    bad = [c["cycle"] for i, c in enumerate(cycles)
+           if not (c["converged"] and c["cg_iters"] <= (
+               AMR_MAX_ITERS if c["dofs"] <= AMR_CONFORMING_MAX_DOFS
+               else cycles[i - 1]["cg_iters"] + AMR_ITER_GROWTH))]
+    if bad:
+        raise AssertionError(f"amr: MG-CG convergence or iterations on "
+                             f"cycles {bad}")
+    if not all(e2 < e1 for e1, e2 in zip(errs, errs[1:])):
+        raise AssertionError(f"amr: the L2 error did not fall: {errs}")
+    if not cycles[-1]["max_elem_level"] >= 2:
+        raise AssertionError("amr: the corner was not refined twice")
+    if not (conforming["mg_iters"] < conforming["cg_iters"] / 3
+            and conforming["rel_diff"] < 1e-9):
+        raise AssertionError(f"amr: against solve_conforming: {conforming}")
+    for c in cycles[1:]:
+        # every reduced level but the LU-solved coarsest runs on B1
+        want = {n for n, path in c["routing"] if path == "bell"}
+        if not (want and all(c["b1_launches_by_rows"].get(str(n), 0) > 0
+                             for n in want)
+                and all(path != "ell" or n < 2048
+                        for n, path in c["routing"])):
+            raise AssertionError(f"amr: B1 missing on a level: {c}")
+    return {**k, "launches": launches}
+
+
+def phase_amr_reference() -> None:
+    """A 3-cycle chain from unit_box((4,4)) (the Poisson problem of
+    tests/test_mg_amr.py), refined by the host's flags: solve_mg_amr on
+    the card and on the host in float64 must agree to 1e-10 with equal
+    iteration counts on every cycle."""
+    from femus_tpu_torch.assembly.engine import Unknown
+    from femus_tpu_torch.assembly.forms import poisson
+    from femus_tpu_torch.mesh.amr import flag_by_error, refine_selective
+    from femus_tpu_torch.mesh.generation import unit_box
+    from femus_tpu_torch.systems import amr
+
+    pi = np.pi
+    problem = ([Unknown("u")], poisson("u", rhs=lambda x: 2 * pi ** 2
+                                       * torch.sin(pi * x[:, 0])
+                                       * torch.sin(pi * x[:, 1])),
+               lambda var, x, grp, t: (True, 0.0))
+    meshes = [unit_box((4, 4))]
+    rep = {"phase": "amr_reference", "rel_diff": [], "iters": []}
+    for cyc in range(3):
+        out = {}
+        for device in ("cuda", "cpu"):
+            out[device] = amr.solve_mg_amr(meshes, *problem, device=device,
+                                           dtype=torch.float64)
+        (uc, ic), (uh, ih) = out["cuda"], out["cpu"]
+        rep["rel_diff"].append(float(np.abs(uc - uh).max()
+                                     / np.abs(uh).max()))
+        rep["iters"].append((ic["iterations"], ih["iterations"]))
+        m = meshes[-1]
+        eta = amr.kelly_indicator(m, "biquadratic",
+                                  uh[:m.dofmap("biquadratic").n_dofs])
+        if cyc < 2:
+            meshes.append(refine_selective(m, flag_by_error(eta, 0.3,
+                                                            "fraction")))
+    rep["n_dofs"] = int(uh.size)
+    emit(rep)
+    if not (max(rep["rel_diff"]) < 1e-10
+            and all(a == b for a, b in rep["iters"])):
+        raise AssertionError(f"card and host AMR solves differ: {rep}")
+
+
+def run_slice7() -> dict:
+    """The slice-7 AMR phases; their reports by short name."""
+    out = {"amr": phase_amr()}
+    phase_amr_reference()
+    return out
+
+
 def card_line() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2181,8 +2617,13 @@ def main() -> int:
         if args.profile:
             phase_profile(sys_, torch.as_tensor(
                 sys_.gather(-1), dtype=sys_.dtype, device="cuda"), "NS")
-        phase_reference()
+        galerkin = {"fields": {n: ml_sol.sol[-1][n].copy()
+                               for n in ("u", "v", "p")},
+                    "history": sys_.history}
         del sys_, ml_sol
+        phase_reference()
+        # slice 7: cavity-128 with rediscretized coarse levels
+        redisc = phase_rediscretize(galerkin)
         # slice 2: the patch-stencil operator path
         setup = {}
         for name, problem, coarse, levels in (
@@ -2221,6 +2662,9 @@ def main() -> int:
         # slice 6: block solvers, norms and convergence, face forms and
         # optimal control on the BELL-frame operator
         s6 = run_slice6(args.profile)
+        # slice 7: adaptive mesh refinement with multigrid across the AMR
+        # levels
+        s7 = run_slice7()
         # slice 5: monolithic FSI on the BELL-frame operator, steady and
         # transient
         fsys, fsol, fsetup = phase_fsi_setup()
@@ -2264,6 +2708,13 @@ def main() -> int:
         "convergence_launches":
             s6["convergence"]["kernel_launches"]["bell_spmv"],
         **{"oc_" + key: s6["kernel"][key]
+           for key in KERNEL_KEYS + ("fill",)},
+        # and on the AMR reduced operators (amr-lshape, float64) and the
+        # rediscretized levels (cavity-128-rediscretize)
+        "amr_launches": s7["amr"]["launches"],
+        "rediscretize_launches": redisc["launches"],
+        "amr_values": "f64",
+        **{"amr_" + key: s7["amr"][key]
            for key in KERNEL_KEYS + ("fill",)}}, {
         "name": "patch_stencil", "route": "cuda",
         "source": "femus_tpu_torch/algebra/csrc/patch_stencil.cu",

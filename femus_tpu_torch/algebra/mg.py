@@ -318,27 +318,70 @@ def build_hierarchy(fine_op: SparseOp,
     return h
 
 
+def _cast_level(op, dtype: torch.dtype):
+    """An operator stored in ``dtype``: an ELL operator, or an ELL
+    operator on the BELL frame (both value arrays cast)."""
+    from .bell import BellBackedOp, BellOp
+    if isinstance(op, BellBackedOp):
+        return BellBackedOp(op.data.to(dtype), op.cols, op.n_cols,
+                            BellOp(op.bell.vals.to(dtype), op.bell.dev))
+    return _cast(op, dtype)
+
+
 def build_hierarchy_from_ops(ops: Sequence, pr_pairs: Sequence,
                              smoother: str = "chebyshev",
                              n_pre: int = 2, n_post: int = 2,
                              jacobi_omega: float = 0.8,
-                             cheb_degree: int = 3) -> MGHierarchy:
+                             cheb_degree: int = 3,
+                             vanka_blocks: Optional[Sequence] = None,
+                             vanka_omega: float = 0.9,
+                             krylov_m: int = 5,
+                             vanka_multiplicative: bool = True,
+                             compute_dtype: Optional[torch.dtype] = None
+                             ) -> MGHierarchy:
     """Hierarchy from EXPLICIT per-level operators (coarsest first) — the
     rediscretized (non-Galerkin) mode: each level's operator is assembled
     on its own mesh instead of PtAP-chained from the finest, so any
-    operator with ``matvec``/``diagonal`` fits (ELL, patch stencil).
-    ``pr_pairs[l]`` = (P, R) connecting level l to l+1.  The coarsest
-    level is LU-factored once here and never smoothed."""
-    if smoother not in ("jacobi", "chebyshev"):
-        raise ValueError(f"smoother {smoother!r}: rediscretized hierarchies "
-                         "take 'jacobi' or 'chebyshev'")
+    operator with ``matvec``/``diagonal`` fits (ELL, ELL on the BELL
+    frame, patch stencil).  ``pr_pairs[l]`` = (P, R) connecting level l to
+    l+1.  The coarsest level is LU-factored once here and never smoothed.
+
+    smoother: "jacobi" | "chebyshev" | "vanka" (multiplicative block
+    sweeps on the levels whose ``vanka_blocks`` entry is not None,
+    Chebyshev on the others).  The additive Vanka sweep
+    (``vanka_multiplicative=False``) and "vanka_gmres" (``krylov_m``
+    inner FGMRES iterations) raise: the rediscretized hierarchy of the
+    reference runs neither.  compute_dtype: every level, the finest
+    included, and every transfer are cast to it (see
+    ``as_preconditioner``)."""
+    if smoother == "vanka_gmres" or (smoother == "vanka"
+                                     and not vanka_multiplicative):
+        raise ValueError(f"smoother {smoother!r} (multiplicative="
+                         f"{vanka_multiplicative}, krylov_m={krylov_m}): "
+                         "rediscretized hierarchies take 'jacobi', "
+                         "'chebyshev' or multiplicative 'vanka'")
+    if smoother not in ("jacobi", "chebyshev", "vanka"):
+        raise ValueError(f"smoother {smoother!r}: rediscretized "
+                         "hierarchies take 'jacobi', 'chebyshev' or "
+                         "multiplicative 'vanka'")
+    pr = [(P, R) for P, R, *_ in pr_pairs]
+    if compute_dtype is not None:
+        ops = [_cast_level(A, compute_dtype) for A in ops]
+        pr = [(_cast(P, compute_dtype), _cast(R, compute_dtype))
+              for P, R in pr]
     levels = [MGLevel(ops[0])]
     for l in range(1, len(ops)):
-        P, R = pr_pairs[l - 1][0], pr_pairs[l - 1][1]
-        levels.append(MGLevel(ops[l], P, R, _point_smoother(
-            ops[l].matvec, ops[l].diagonal(), smoother, jacobi_omega,
-            cheb_degree)))
-    h = MGHierarchy(levels, n_pre, n_post)
+        A = ops[l]
+        if (smoother == "vanka" and vanka_blocks is not None
+                and vanka_blocks[l] is not None):
+            from .vanka import vanka_smoother
+            sm = vanka_smoother(A, vanka_blocks[l], omega=vanka_omega)
+        else:
+            d = A.diagonal()
+            sm = _point_smoother(A.matvec, d.to(vector_dtype(d.dtype)),
+                                 smoother, jacobi_omega, cheb_degree)
+        levels.append(MGLevel(A, pr[l - 1][0], pr[l - 1][1], sm))
+    h = MGHierarchy(levels, n_pre, n_post, compute_dtype=compute_dtype)
     h.setup_coarse()
     return h
 
@@ -351,6 +394,7 @@ def build_hierarchy_matfree(fine_mv: Callable, fine_diag: torch.Tensor,
                             dir_masks: Optional[Sequence] = None,
                             vanka_blocks: Optional[Sequence] = None,
                             vanka_omega: float = 0.9,
+                            compute_dtype: Optional[torch.dtype] = None,
                             device="cuda") -> MGHierarchy:
     """Hierarchy whose FINEST level is matrix-free: operator = ``fine_mv``
     (J.v via the linearised residual, no matrix data), smoother =
@@ -361,15 +405,26 @@ def build_hierarchy_matfree(fine_mv: Callable, fine_diag: torch.Tensor,
     the coarse mesh at the restricted state — rediscretization replaces
     the PtAP that would otherwise need the fine matrix), and deeper levels
     Galerkin-coarsen from it via ``transfers[:-1]``.  ``transfers[-1]``
-    supplies only the fine P/R pair."""
+    supplies only the fine P/R pair.  compute_dtype: the assembled
+    sub-levels and every transfer are stored in it; the fine J.v keeps the
+    ambient precision and takes and returns the cycle's vectors (see
+    ``as_preconditioner``)."""
     sub = build_hierarchy(next_op, transfers[:-1], smoother=smoother,
                           n_pre=n_pre, n_post=n_post,
                           jacobi_omega=jacobi_omega, cheb_degree=cheb_degree,
                           dir_masks=dir_masks, vanka_blocks=vanka_blocks,
-                          vanka_omega=vanka_omega, device=device)
+                          vanka_omega=vanka_omega,
+                          compute_dtype=compute_dtype, device=device)
+    P, R = transfers[-1][0], transfers[-1][1]
+    vdt = vector_dtype(compute_dtype)
+    if vdt is not None:
+        mv0, amb = fine_mv, fine_diag.dtype
+        fine_mv = lambda x: mv0(x.to(amb)).to(x.dtype)      # noqa: E731
+        fine_diag = fine_diag.to(vdt)
+        P, R = _cast(P, compute_dtype), _cast(R, compute_dtype)
     sm = _point_smoother(fine_mv, fine_diag, smoother, jacobi_omega,
                          cheb_degree)
-    P, R = transfers[-1][0], transfers[-1][1]
     levels = sub.levels + [MGLevel(MatFreeOp(fine_mv, fine_diag.shape[0]),
                                    P, R, sm)]
-    return MGHierarchy(levels, n_pre, n_post, coarse_lu=sub.coarse_lu)
+    return MGHierarchy(levels, n_pre, n_post, coarse_lu=sub.coarse_lu,
+                       compute_dtype=compute_dtype)

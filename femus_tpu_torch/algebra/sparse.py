@@ -131,6 +131,13 @@ class SparseOp:
                                                              self.n_cols)
 
 
+def op_from_pattern(pat: EllPattern, data: torch.Tensor) -> SparseOp:
+    """ELL operator on ``pat`` with values ``data`` (n_rows, width); the
+    columns go to the device the values are on."""
+    return SparseOp(data, torch.as_tensor(pat.cols, dtype=torch.int64,
+                                          device=data.device), pat.n_cols)
+
+
 def op_from_scipy(m: sp.spmatrix, device, dtype=torch.float64
                   ) -> Tuple[SparseOp, EllPattern]:
     """ELL operator (on ``device``) and its pattern from a scipy matrix."""

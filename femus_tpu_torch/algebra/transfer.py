@@ -32,7 +32,13 @@ def prolongation_scipy(coarse_mesh, fine_mesh, family: str) -> sp.csr_matrix:
     ndf, ndc = blocks.shape[1], blocks.shape[2]
     rows = np.repeat(dmf.conn, ndc, axis=1).ravel()
     cols = np.tile(dmc.conn[fine_mesh.parent_elem], (1, ndf)).ravel()
+    # AMR meshes copy unrefined elements verbatim (child_slot = -1,
+    # mesh/amr.py refine_selective): their block is the identity
     slots = np.asarray(fine_mesh.child_slot)
+    if (slots < 0).any():
+        assert ndf == ndc
+        blocks = np.concatenate([blocks, np.eye(ndf)[None]], axis=0)
+        slots = np.where(slots < 0, blocks.shape[0] - 1, slots)
     vals = blocks[slots].ravel()
     # conforming interpolation: duplicated (row, col) pairs agree — keep first
     keys = rows.astype(np.int64) * dmc.n_dofs + cols

@@ -500,32 +500,39 @@ class Assembler:
             parts.append(r)
         return torch.cat(parts)
 
+    def _face_batch_fns(self, tables, aux_scalars) -> list:
+        """[(dofs, fone, rest, batch tables)] per face batch: ``fone(u_loc,
+        *rest)`` is one face's residual on its local dofs ``dofs`` (face
+        dofs, or all element dofs for a volume face form)."""
+        aux_scalars = aux_scalars or {}
+        out = []
+        for b, bt in zip(self.face_batches, tables["faces"]):
+            if self.face_form_volume:
+                def fone(ue, ecl, fcl, grp, _bt=bt):
+                    return self._volume_face_residual(
+                        _bt["vtabs"], _bt["tabs"], _bt["weights"], ue, ecl,
+                        fcl, grp, aux_scalars)
+
+                out.append((bt["eidx"], fone, (bt["ecoords"], bt["coords"],
+                                               bt["groups"]), bt))
+            else:
+                def fone(ul, cl, grp, _b=b, _bt=bt):
+                    return self._face_residual(_b, _bt["tabs"],
+                                               _bt["weights"], ul, cl, grp,
+                                               aux_scalars)
+
+                out.append((bt["fdofs"], fone, (bt["coords"], bt["groups"]),
+                            bt))
+        return out
+
     def _add_faces(self, u, tables, aux_scalars, R, data,
                    with_jacobian: bool):
         """Add the boundary-face residuals to ``R`` and, with
         ``with_jacobian``, their Jacobians (``torch.func.jacfwd``: forward
         derivatives along the face's local dof tangents) to the flat ELL
         ``data`` through the face slots."""
-        aux_scalars = aux_scalars or {}
-        for b, bt in zip(self.face_batches, tables["faces"]):
-            if self.face_form_volume:
-                dofs = bt["eidx"]
-
-                def fone(ue, ecl, fcl, grp, _bt=bt):
-                    return self._volume_face_residual(
-                        _bt["vtabs"], _bt["tabs"], _bt["weights"], ue, ecl,
-                        fcl, grp, aux_scalars)
-
-                args = (u[dofs], bt["ecoords"], bt["coords"], bt["groups"])
-            else:
-                dofs = bt["fdofs"]
-
-                def fone(ul, cl, grp, _b=b, _bt=bt):
-                    return self._face_residual(_b, _bt["tabs"],
-                                               _bt["weights"], ul, cl, grp,
-                                               aux_scalars)
-
-                args = (u[dofs], bt["coords"], bt["groups"])
+        for dofs, fone, rest, bt in self._face_batch_fns(tables, aux_scalars):
+            args = (u[dofs],) + rest
             if with_jacobian:
                 # one pass: the residual rides along as jacfwd's aux
                 jf, rf = torch.func.vmap(torch.func.jacfwd(
@@ -727,32 +734,48 @@ class Assembler:
 
     def make_linearized_fn(self):
         """(u, tables, aux_scalars=None, aux_fields=None) -> (R, jv): the
-        residual at ``u``
-        (Dirichlet rows zeroed) and the action ``jv(v) = J(u) v`` of its
-        Jacobian WITHOUT Dirichlet elimination and without any global
-        matrix data — the fine operator of the matrix-free path.  The
-        element residuals are linearised once (``torch.func.linearize``,
-        element-local, so neither the gather nor the ``index_add_`` scatter
-        is differentiated); each ``jv`` is gather -> linear map -> scatter."""
-
-        if self.face_form is not None:
-            raise NotImplementedError("the linearised residual covers the "
-                                      "volume form only: face forms need "
-                                      "an assembled operator")
+        residual at ``u`` (Dirichlet rows zeroed) and the action
+        ``jv(v) = J(u) v`` of its Jacobian WITHOUT Dirichlet elimination
+        and without any global matrix data — the fine operator of the
+        matrix-free path.  The element residuals, and the boundary-face
+        residuals of a face form, are linearised once
+        (``torch.func.linearize``, element- and face-local, so neither the
+        gathers nor the ``index_add_`` scatters are differentiated); each
+        ``jv`` is gather -> linear maps -> scatter."""
 
         def lin_t(u, tables, aux_scalars=None, aux_fields=None):
             all_elems = self._element_fn(tables, aux_scalars, aux_fields)
             u = u.to(device=self.device, dtype=self.dtype)
             rT, jvp = torch.func.linearize(all_elems, u[tables["edofs"]].T)
-            R = torch.where(tables["dir_mask"], 0.0,
-                            self._scatter_rows(tables, rT))
+            R = self._scatter_rows(tables, rT)
+            faces = self._linearized_faces(u, tables, aux_scalars)
+            for dofs, rf, _ in faces:
+                R = R.index_add(0, dofs.reshape(-1), rf.reshape(-1))
+            R = torch.where(tables["dir_mask"], 0.0, R)
 
             def jv(v):
-                return self._scatter_rows(tables, jvp(v[tables["edofs"]].T))
+                out = self._scatter_rows(tables, jvp(v[tables["edofs"]].T))
+                for dofs, _, fjvp in faces:
+                    out = out.index_add(0, dofs.reshape(-1),
+                                        fjvp(v[dofs]).reshape(-1))
+                return out
 
             return R, jv
 
         return lin_t
+
+    def _linearized_faces(self, u, tables, aux_scalars) -> list:
+        """[(dofs, face residuals, their linear map)] of each face batch
+        of the face form at ``u`` (none without a face form)."""
+        if self.face_form is None:
+            return []
+        out = []
+        for dofs, fone, rest, _ in self._face_batch_fns(tables, aux_scalars):
+            rf, fjvp = torch.func.linearize(
+                lambda ul, _f=fone, _r=rest: torch.func.vmap(_f)(ul, *_r),
+                u[dofs])
+            out.append((dofs, rf, fjvp))
+        return out
 
     def op_with(self, data: torch.Tensor, cols: torch.Tensor = None):
         """Wrap assembled data as a device operator: ELL data -> SparseOp

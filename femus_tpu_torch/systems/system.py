@@ -37,6 +37,11 @@ KERNELS = {"bell_spmv": spmv_bell_cuda, "patch_stencil": spmv_patch_cuda,
            "dia_spmv": spmv_dia_cuda, "stencil_spmv": spmv_stencil_cuda}
 
 
+# rows from which an operator's matvec runs on the sliced-ELL operator of
+# the BELL frame (kernel B1); below, the ELL gather is already cheap
+BELL_MIN_ROWS = 2048
+
+
 def launch_counts() -> Dict[str, int]:
     """Launches of every kernel so far, by kernel name."""
     return {name: fn.launches for name, fn in KERNELS.items()}
@@ -106,8 +111,10 @@ class SolverConfig:
     operator: str = "assembled"
     # coarse V-cycle operators: "galerkin" = PtAP chain from the fine
     # Jacobian; "rediscretize" = each coarse level re-assembled on its own
-    # mesh at the restricted state (no PtAP schedule is built; ported for
-    # operator="patch" only)
+    # mesh at the restricted state (no PtAP schedule is built; stacked dofs
+    # only; smoothers jacobi, chebyshev or multiplicative vanka on each
+    # level's own pattern; operator="matrix_free" does not read it: its
+    # first coarse level is always re-assembled, the deeper ones Galerkin)
     coarse_op: str = "galerkin"
     # dof ordering of the BELL frame: "identity" trusts the mesh numbering
     # (a plan whose blocked-ELL slab would exceed 24x the ELL bytes is
@@ -199,7 +206,7 @@ class System:
             raise ValueError(f"operator {cfg.operator!r}")
         if cfg.coarse_op not in ("galerkin", "rediscretize"):
             raise ValueError(f"coarse_op {cfg.coarse_op!r}")
-        rediscretize = cfg.coarse_op == "rediscretize"
+        rediscretize = self._rediscretized
         if cfg.operator == "patch":
             # PtAP cannot consume the patch layout, so coarse V-cycle
             # operators are re-assembled per level
@@ -209,12 +216,15 @@ class System:
             if cfg.smoother not in ("jacobi", "chebyshev"):
                 raise ValueError("operator='patch': jacobi/chebyshev "
                                  "smoothers only")
-        elif rediscretize:
-            raise NotImplementedError("coarse_op='rediscretize' is ported "
-                                      "for operator='patch' only")
+        elif rediscretize and (cfg.smoother == "vanka_gmres" or (
+                cfg.smoother == "vanka" and not cfg.vanka_multiplicative)):
+            raise ValueError("coarse_op='rediscretize' takes jacobi, "
+                             "chebyshev or multiplicative vanka smoothers")
         if cfg.interleave_dofs and cfg.operator in ("patch", "matrix_free"):
             raise ValueError("interleave_dofs needs assembled/bell "
                              "operators")
+        if cfg.interleave_dofs and rediscretize:
+            raise ValueError("interleave_dofs needs coarse_op='galerkin'")
         self.device = resolve_device(device)
         self.dtype = dtype or default_dtype(self.device)
         ml_sol = self.ml_sol
@@ -254,12 +264,19 @@ class System:
         self._bell_plans: Dict[object, object] = {}
         self._initialized = True
 
+    @property
+    def _rediscretized(self) -> bool:
+        """Coarse levels re-assembled per step (``coarse_op="rediscretize"``;
+        the matrix-free step builds its own coarse side and ignores it)."""
+        return (self.config.coarse_op == "rediscretize"
+                and self.config.operator != "matrix_free")
+
     def _build_transfers(self) -> None:
         """Transfers against the current Dirichlet masks, chained top-down
         so each schedule consumes the actual ELL pattern of the level above;
         rediscretized levels need P and R only, plus the state restriction
         of each level."""
-        rediscretize = self.config.coarse_op == "rediscretize"
+        rediscretize = self._rediscretized
         n_levels = len(self.ml_mesh.levels)
         self.transfers = [None] * (n_levels - 1)
         self._rsol = [None] * (n_levels - 1)
@@ -335,12 +352,13 @@ class System:
 
     def _bell_dev(self, pattern):
         """Cached device plan (sliced ELL in the BELL frame) for an
-        operator pattern; None below 2048 rows, where the ELL gather is
-        already cheap.  The frame is the blocked-ELL plan's: identity, or
-        RCM when asked for or when the identity slab is too sparse."""
-        if pattern.n_rows < 2048:
+        operator pattern; None below BELL_MIN_ROWS rows.  The frame is the
+        blocked-ELL plan's: identity, or RCM when asked for or when the
+        identity slab is too sparse."""
+        if pattern.n_rows < BELL_MIN_ROWS:
             self._route_note(n_rows=pattern.n_rows, path="ell",
-                             reason="below bell threshold (2048 rows)")
+                             reason=f"below bell threshold ({BELL_MIN_ROWS}"
+                                    " rows)")
             return None
         # EllPattern has identity equality: the pattern object is the key
         if pattern not in self._bell_plans:
@@ -415,8 +433,7 @@ class System:
         if level < 0:
             level += n_levels
         if level not in self._transfer_cache:
-            if (level == n_levels - 1
-                    or self.config.coarse_op == "rediscretize"):
+            if level == n_levels - 1 or self._rediscretized:
                 tr = self.transfers[:level]
             else:
                 tr = [None] * level
@@ -457,7 +474,7 @@ class System:
             transfers = transfers[base:]
         dmasks = [torch.as_tensor(m, device=self.device)
                   for m in self.masks[base:level]]
-        rediscretize = cfg.coarse_op == "rediscretize" and bool(transfers)
+        rediscretize = self._rediscretized and bool(transfers)
         if rediscretize and base:
             raise NotImplementedError("coarse_op='rediscretize' with "
                                       "max_mg_levels")
@@ -501,13 +518,16 @@ class System:
         if cfg.smoother in ("vanka", "vanka_gmres"):
             from ..algebra.vanka import build_element_blocks
             if transfers:
-                # j indexes the cycle's levels, base + j the mesh levels
+                # j indexes the cycle's levels, base + j the mesh levels;
+                # a Galerkin coarse operator lives on its PtAP pattern, a
+                # rediscretized one on its level's own assembler pattern
                 vblocks = [None if (j == 0 and coarse_lu) else
                            build_element_blocks(
                                self.assemblers[base + j],
                                cfg.vanka_block_elems,
                                pattern=(transfers[j][2].coarse_pattern
-                                        if j < len(transfers) else None),
+                                        if (j < len(transfers)
+                                            and not rediscretize) else None),
                                groups=cfg.vanka_groups, device=self.device)
                            for j in range(level + 1 - base)]
             else:
@@ -520,7 +540,9 @@ class System:
             bell_fine = self._bell_dev(a.pattern)
             if transfers:
                 bell_coarse = [None if (l == 0 and coarse_lu) else
-                               self._bell_dev(t[2].coarse_pattern)
+                               self._bell_dev(
+                                   self.assemblers[l].pattern if rediscretize
+                                   else t[2].coarse_pattern)
                                for l, t in enumerate(transfers)] + [None]
 
         def step(u, tables=None, aux_scalars=None, aux_fields=None,
@@ -558,10 +580,15 @@ class System:
                     _, data_l = coarse_assemble[l](u_l, t_c, aux_scalars,
                                                    self._aux_arrays(l))
                     ops[l] = a_c.op_with(data_l, t_c.get("ell_cols"))
+                    if bell_coarse is not None and bell_coarse[l] is not None:
+                        ops[l] = bell_backed(bell_coarse[l], ops[l])
                 h = build_hierarchy_from_ops(
                     ops, [(t[0], t[1]) for t in transfers],
                     smoother=cfg.smoother, n_pre=cfg.n_pre,
-                    n_post=cfg.n_post, cheb_degree=cfg.cheb_degree)
+                    n_post=cfg.n_post, cheb_degree=cfg.cheb_degree,
+                    vanka_blocks=vblocks, vanka_omega=cfg.vanka_omega,
+                    krylov_m=cfg.krylov_m,
+                    vanka_multiplicative=cfg.vanka_multiplicative)
                 M = h.as_preconditioner(cfg.mg_cycle)
             elif transfers:
                 h = build_hierarchy(A, transfers, smoother=cfg.smoother,

@@ -447,9 +447,18 @@ def test_incompatible_pairings_raise():
 
     with pytest.raises(ValueError, match="interleave_dofs"):
         fresh(operator="matrix_free", interleave_dofs=True).init(device="cpu")
-    with pytest.raises(NotImplementedError, match="rediscretize"):
-        fresh(operator="matrix_free",
-              coarse_op="rediscretize").init(device="cpu")
+    # the matrix-free step ignores coarse_op, as the reference's does (its
+    # first coarse level is re-assembled, the deeper ones Galerkin); the
+    # solve is held against the reference in tests/test_torch_rediscretize.py
+    mf = fresh(operator="matrix_free", coarse_op="rediscretize")
+    mf.init(device="cpu")
+    assert all(t[2] is not None for t in mf.transfers)
+    with pytest.raises(ValueError, match="galerkin"):
+        fresh(coarse_op="rediscretize", interleave_dofs=True,
+              operator="bell").init(device="cpu")
+    with pytest.raises(ValueError, match="multiplicative vanka"):
+        fresh(coarse_op="rediscretize",
+              smoother="vanka_gmres").init(device="cpu")
     with pytest.raises(ValueError, match="operator"):
         fresh(operator="dense").init(device="cpu")
     with pytest.raises(ValueError, match="jacobi/chebyshev"):

@@ -237,3 +237,12 @@ def test_chip_smoke_fails_without_a_card():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode != 0
     assert out.stdout == ""
+
+
+def test_amr_modules_are_covered():
+    """The AMR mesh and solve modules (the port's own copy of the
+    numpy-only mesh/amr.py included) are among those the import checks
+    walk."""
+    mods = set(_modules())
+    for m in ("mesh.amr", "systems.amr", "algebra.mg", "algebra.sparse"):
+        assert f"femus_tpu_torch.{m}" in mods, m

@@ -521,3 +521,95 @@ def test_bf16_cycle_on_card(cuda):
     f = np.concatenate([sol.sol[-1][n] for n in ("u", "v", "p")])
     ref = np.concatenate([ref_sol.sol[-1][n] for n in ("u", "v", "p")])
     assert np.linalg.norm(f - ref) <= 1e-3 * np.linalg.norm(ref)
+
+
+def _amr_reduced_operator():
+    """The hanging-constraint-reduced Q2 Poisson operator C^T A C of a
+    selectively refined unit_box((24, 24)) (the corner quarter refined
+    twice), with the Dirichlet identity restored (host, float64)."""
+    from femus_tpu_torch.mesh.amr import refine_selective
+    from femus_tpu_torch.systems import amr
+
+    mesh = unit_box((24, 24))
+    for _ in range(2):
+        cent = mesh.coords[mesh.conn[:, :4]].mean(axis=1)
+        mesh = refine_selective(mesh, (cent < 0.25).all(axis=1))
+    asm, C, free_idx, mask_f, sched = amr._reduced_system(
+        mesh, [Unknown("u")], poisson("u", rhs=lambda x: 1.0 + 0.0 * x[:, 0]),
+        lambda var, x, grp, t: (True, 0.0), device="cpu")
+    u0 = amr._start(asm, C, free_idx, torch.float64, torch.device("cpu"))
+    A, _, _ = amr._reduced_op(asm, C, free_idx, mask_f, sched, u0)
+    assert C.shape[0] > C.shape[1] and A.n_rows >= amr.BELL_MIN_ROWS
+    return sched.coarse_pattern, A.data
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["amr", "rediscretized"])
+def test_bell_kernel_on_new_callers(cuda, case):
+    """B1 in float64 (the AMR solves' type; float32 too on a rediscretized
+    level) on an AMR reduced operator and on a rediscretized coarse level
+    (the middle level of a 12 x 12 -> 48 x 48 Poisson hierarchy, 2,401
+    rows), in the plan the solve builds, against its plain version."""
+    from femus_tpu_torch.systems.system import bell_device_plan
+    if case == "amr":
+        pattern, data = _amr_reduced_operator()
+        dtypes = [(torch.float64, 1e-12)]
+    else:
+        a = Assembler(unit_box((24, 24)), [Unknown("u")], device="cpu")
+        a.set_volume_form(poisson("u", rhs=lambda x: 1.0 + 0.0 * x[:, 0]))
+        generate_bdc(a, lambda var, x, grp, t: (True, 0.0))
+        _, data = a.make_assemble_fn()(torch.zeros(a.n_dofs,
+                                                   dtype=torch.float64))
+        pattern = a.pattern
+        assert pattern.n_rows == 2401
+        dtypes = [(torch.float64, 1e-12), (torch.float32, 1e-5)]
+    dev, note = bell_device_plan(pattern, "identity", cuda)
+    assert note["path"] == "bell"
+    for val_dtype, rtol in dtypes:
+        op = bell.relayout_ell(dev, data, dtype=val_dtype, device=cuda)
+        x = torch.as_tensor(np.random.default_rng(4).standard_normal(dev.n),
+                            dtype=val_dtype, device=cuda)
+        n0 = bell.spmv_bell_cuda.launches
+        y = op.matvec_frame(x)
+        torch.cuda.synchronize()
+        assert bell.spmv_bell_cuda.launches == n0 + 1
+        y_ref = bell._matvec_plain_frame(op, x)
+        scale = bell._matvec_plain_frame(_abs_op(op), x.abs()).abs().max()
+        assert float((y - y_ref).abs().max()) <= rtol * float(scale)
+
+
+@pytest.mark.cuda
+def test_rediscretized_bell_solve_on_card(cuda):
+    """A rediscretized Poisson V-cycle on the card runs B1 on the fine
+    level and on the middle level, and agrees with the host solve."""
+    from femus_tpu_torch.mesh.multilevel import MultiLevelMesh
+    from femus_tpu_torch.systems.problem import MultiLevelProblem
+    from femus_tpu_torch.systems.solution import MultiLevelSolution
+    from femus_tpu_torch.systems.system import LinearImplicitSystem
+
+    out = {}
+    for device, dtype in ((cuda, torch.float64), ("cpu", torch.float64)):
+        ml = MultiLevelMesh(unit_box((12, 12)), 3)
+        sol = MultiLevelSolution(ml)
+        sol.add_solution("u")
+        sol.initialize("u")
+        sol.attach_bc(lambda var, x, grp, t: (True, 0.0))
+        sol.generate_bdc("u")
+        s = MultiLevelProblem(ml, sol).add_system(LinearImplicitSystem, "P")
+        s.add_unknown("u")
+        s.set_assembly(poisson("u", rhs=lambda x: 1.0 + 0.0 * x[:, 0]))
+        s.config.operator = "bell"
+        s.config.coarse_op = "rediscretize"
+        s.config.rtol = 1e-10
+        s.init(device=device, dtype=dtype)
+        n0 = bell.spmv_bell_cuda.launches
+        info = s.solve()
+        assert info["converged"]
+        out[str(device)] = (sol.sol[-1]["u"].copy(),
+                            bell.spmv_bell_cuda.launches - n0, info)
+        assert {n["n_rows"] for n in s.solver_info()["routing"]
+                if n.get("path") == "bell"} == {2401, 9409}
+    (u_c, k_c, i_c), (u_h, k_h, i_h) = out[str(cuda)], out["cpu"]
+    assert k_c > 0 and k_h == 0
+    assert i_c["iters"] == i_h["iters"]
+    assert np.abs(u_c - u_h).max() <= 1e-10 * np.abs(u_h).max()

@@ -584,12 +584,19 @@ def test_patch_config_errors():
     s.config.smoother = "vanka"
     with pytest.raises(ValueError, match="chebyshev"):
         s.init(device="cpu")
-    # rediscretized coarse operators are ported for the patch operator only
+    # rediscretized coarse operators are ported for the assembled and BELL
+    # operators too: P and R only, no PtAP schedule, ELL levels; the
+    # additive Vanka sweep raises there (tests/test_torch_rediscretize.py)
     s.config.smoother = "chebyshev"
     for op in ("assembled", "bell"):
         s.config.operator = op
-        with pytest.raises(NotImplementedError, match="operator='patch'"):
-            s.init(device="cpu")
+        s.init(device="cpu")
+        assert all(t[2] is None for t in s.transfers)
+        assert all(a.patch_tab is None for a in s.assemblers)
+    s.config.smoother = "vanka"
+    s.config.vanka_multiplicative = False
+    with pytest.raises(ValueError, match="multiplicative"):
+        s.init(device="cpu")
     # the finite-strain models are ported (tests/test_torch_fsi.py); a
     # model outside the Solid registry raises
     from femus_tpu_torch.systems.constitutive import cauchy_stress
