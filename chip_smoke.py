@@ -203,6 +203,61 @@ mesh refinement with multigrid across the AMR levels (kernel B1):
                     the card and on the host in float64 agree to 1e-10 with
                     equal iteration counts.
 
+Slice 8, the remaining assembly forms, surface FE, the batch-first layout,
+mixed-element meshes and the nonlocal operator, after phase 31 (kernel B1
+on every path; constants BOUS_*, FORMS_*, SURF_N, CONF_N, MIXED_N, SW_*,
+NONLOCAL_*):
+
+32. bous_setup, bous_kernel, bous_main — the slice's main path,
+                    boussinesq-cavity-128: the de Vahl Davis (1983)
+                    differentially heated cavity (Ra = 1e4, Pr = 0.71, hot
+                    wall x = 0 at T = 0.5, cold x = 1 at -0.5, insulated top
+                    and bottom, no-slip) on unit_box((16,16)) refined to 4
+                    levels (u, v, T Q2, p P1dc: 247,299 dofs), configured as
+                    cavity-128 (``boussinesq_system``): set-up seconds, B1
+                    on the Jacobian at the initial state (f32, bf16; cold
+                    time, bound, CSR, fill), then up to BOUS_NEWTON Newton
+                    steps; gates: every linear solve meets rtol, ||R(u)||
+                    falls 10^3x, T within [-0.5, 0.5] to 1e-3, Nu on the
+                    hot wall (``hot_wall_nusselt``), u_max on x = 0.5 and
+                    v_max on y = 0.5 times sqrt(Ra Pr) within BOUS_TOL of
+                    2.243, 16.178 and 19.617;
+33. bous_reference — the cavity on unit_box((4,4)), 3 levels: the card
+                    (float32) against the host (float64), every field to
+                    1e-3 relative;
+34. forms         — forms-128 in float64: the coupled biharmonic
+                    (Chebyshev V-cycle GMRES(60) to 1e-10) and Willmore
+                    flow of a graph (the sphere cap from its interpolant,
+                    Vanka V-cycle, Newton to 1e-11) from unit_box((8,8)) at
+                    4 and 5 levels; gates: L2 orders above 2.3 and 2.5, the
+                    biharmonic's v/(2 pi^2) within 10x u's error, Newton
+                    within 8 steps;
+35. surface       — surface-cylinder-256: Laplace-Beltrami on
+                    map_to_surface(unit_box((256,256)), half cylinder)
+                    (263,169 dofs) and at 128x128, assembled on the card
+                    through the manifold geometry, Jacobi-CG on the BELL
+                    frame to 1e-10; gates: area pi to 1e-9, L2 order > 2.5;
+36. conformal     — conformal-128: conformal_minimization (the batch-first
+                    layout) on unit_box((128,128)) from the bumped
+                    holomorphic map, Newton with Jacobi-GMRES(60) to 1e-10;
+                    gates: <= 12 Newton steps, Dx on 0.1 (x^2 - y^2),
+                    0.2 x y to 1e-9, conformal energy < 1e-10;
+37. mixed         — mixed-poisson-128: MixedAssembler on
+                    mixed_unit_box((128,128)) (quads and triangles) and at
+                    64x64, Q2 Poisson, Jacobi-CG on the BELL frame to
+                    1e-12; gate: L2 order > 2.5;
+38. sw            — sw-128, Crank-Nicolson, dt 0.01, no multigrid: the lake
+                    at rest (h, u, v over a bump, 198,147 dofs, 5 steps;
+                    gate: still to 1e-8) and a tracer in a uniform drift
+                    (66,049 dofs, 40 steps; gate: centre of mass at
+                    (0.55 +- 0.04, 0.5 +- 0.02));
+39. nonlocal_kernel, nonlocal — nonlocal-64 in float64: the pair assembly
+                    on the card (500,970 element pairs, 4,225 rows of up to
+                    357 entries), B1 against its plain version on this
+                    operator, then solve_dirichlet (CG on the BELL frame);
+                    gates: symmetric and A 1 = 0 to rounding, the CG
+                    converges, the core shape of tests/test_nonlocal.py.
+
 Then the card's name and power limit, the kernel table as one JSON line,
 and the final status line.
 """
@@ -305,6 +360,30 @@ CONV_COARSE, CONV_LEVELS = 4, 6
 AMR_COARSE, AMR_CYCLES, AMR_FRACTION = 32, 8, 0.2
 AMR_TOL, AMR_MAX_ITERS, AMR_CONFORMING_MAX_DOFS = 1e-10, 15, 20000
 AMR_ITER_GROWTH = 4
+
+
+# slice 8: boussinesq-cavity-128, the de Vahl Davis (1983) differentially
+# heated cavity at Ra = 1e4, Pr = 0.71 on unit_box((16,16)), 4 levels
+# (finest 128x128, u, v, T Q2 and p P1dc: 247,299 dofs), float32, linear
+# rtol 1e-4, up to BOUS_NEWTON Newton steps from zero; the benchmark's Nu on
+# the hot wall, u_max on x = 0.5 and v_max on y = 0.5 (velocities in units
+# of kappa / L: the form's free-fall velocities times sqrt(Ra Pr)), each
+# held to BOUS_TOL relative
+BOUS_RA, BOUS_PR, BOUS_NEWTON = 1e4, 0.71, 8
+BOUS_BENCH = {"nu": 2.243, "u_max": 16.178, "v_max": 19.617}
+BOUS_TOL = 0.01
+# forms-128: the coupled biharmonic and Willmore flow of a graph from
+# unit_box((8,8)) over FORMS_LEVELS levels (finest 128x128, 2 x 66,049
+# dofs) and one level fewer for the L2 order, float64; the sphere cap of
+# tests/test_willmore.py has radius WILLMORE_R
+FORMS_COARSE, FORMS_LEVELS, WILLMORE_R = 8, 5, 1.2
+# surface-cylinder-256 (263,169 dofs) and the 128x128 mesh for the order;
+# conformal-128 (132,098 dofs); mixed-poisson-128 and the 64x64 mesh for
+# the order; sw-128 (lake at rest: 198,147 dofs; tracer: 66,049);
+# nonlocal-64 (4,225 dofs, 1.30 M nonzeros, rows of up to 357)
+SURF_N, CONF_N, MIXED_N = 256, 128, 128
+SW_N, SW_DT, SW_LAKE_STEPS, SW_TRACER_STEPS = 128, 0.01, 5, 40
+NONLOCAL_N, NONLOCAL_DELTA = 64, 0.1
 
 
 # the measured keys of a row of the final kernel table
@@ -495,6 +574,24 @@ def phase_kernel(sys_, phase: str = "kernel",
     return b1_rows(data, a.pattern, sys_._bell_dev(a.pattern), phase, dtypes)
 
 
+def b1_held(op, xv, rtol: float) -> dict:
+    """Kernel B1 against its plain version on the frame operator ``op``
+    and vector ``xv``: the largest difference, within ``rtol`` of
+    max(|A| |x|), and bit-for-bit repeats."""
+    from femus_tpu_torch.algebra import bell
+
+    y_k = bell.spmv_bell_cuda(op, xv)
+    torch.cuda.synchronize()
+    y_p = bell._matvec_plain_frame(op, xv)
+    absop = bell.BellOp(op.vals.abs(), op.dev)
+    scale = float(bell._matvec_plain_frame(absop, xv.abs()).abs().max())
+    err = float((y_k - y_p).abs().max())
+    return {"max_abs_err": err, "scale": scale, "rtol": rtol,
+            "ok": err <= rtol * scale,
+            "repeats_bit_for_bit": bool(torch.equal(
+                bell.spmv_bell_cuda(op, xv), y_k))}
+
+
 def b1_rows(data, pattern, dev, phase: str, dtypes) -> dict:
     """B1 against its plain version on the ELL operator ``data`` of
     ``pattern`` in the device plan ``dev``: values in each of ``dtypes``,
@@ -510,18 +607,6 @@ def b1_rows(data, pattern, dev, phase: str, dtypes) -> dict:
            "slots": dev.total, "fill": dev.fill,
            "identity_frame": dev.perm is None}
 
-    def held(op, xv, rtol) -> dict:
-        y_k = bell.spmv_bell_cuda(op, xv)
-        torch.cuda.synchronize()
-        y_p = bell._matvec_plain_frame(op, xv)
-        absop = bell.BellOp(op.vals.abs(), op.dev)
-        scale = float(bell._matvec_plain_frame(absop, xv.abs()).abs().max())
-        err = float((y_k - y_p).abs().max())
-        return {"max_abs_err": err, "scale": scale, "rtol": rtol,
-                "ok": err <= rtol * scale,
-                "repeats_bit_for_bit": bool(torch.equal(
-                    bell.spmv_bell_cuda(op, xv), y_k))}
-
     rows = {}
     valid = torch.as_tensor(pattern.valid, device="cuda")
     cols = torch.as_tensor(pattern.cols, dtype=torch.int64, device="cuda")
@@ -531,7 +616,7 @@ def b1_rows(data, pattern, dev, phase: str, dtypes) -> dict:
         op = bell.relayout_ell(dev, data, dtype=dt, device="cuda")
         # float64 values multiply a float64 x (the FSI solve's own types)
         xv = x.double() if dt == torch.float64 else x
-        row = held(op, xv, 1e-12 if dt == torch.float64 else 1e-5)
+        row = b1_held(op, xv, 1e-12 if dt == torch.float64 else 1e-5)
         isz, xsz = op.vals.element_size(), xv.element_size()
         # what the kernel reads and writes: values, int32 columns, slice
         # pointers, the row order, x and y, each once
@@ -582,7 +667,7 @@ def b1_rows(data, pattern, dev, phase: str, dtypes) -> dict:
     rnd = torch.randn(valid.shape, generator=gen, dtype=torch.float64
                       ).cuda() * valid
     op64 = bell.relayout_ell(dev, rnd, device="cuda")
-    rows["f64_random"] = held(
+    rows["f64_random"] = b1_held(
         op64, torch.randn(n, generator=gen, dtype=torch.float64).cuda(),
         1e-12)
     del op64, rnd
@@ -1766,13 +1851,12 @@ def fieldsplit_cavity(n: int, device, dtype):
     pressure gauge, at the Dirichlet-lifted zero state; (assembler,
     operator, R) with the operator on the BELL-frame plan that System
     builds for it (bell_device_plan) from 2048 rows up."""
-    from femus_tpu_torch.algebra.bell import bell_backed
+    from femus_tpu_torch.algebra.bell import bell_backed, bell_device_plan
     from femus_tpu_torch.assembly.bc import (apply_dirichlet_values,
                                              generate_bdc)
     from femus_tpu_torch.assembly.engine import Assembler, Unknown
     from femus_tpu_torch.assembly.forms import navier_stokes
     from femus_tpu_torch.mesh.generation import unit_box
-    from femus_tpu_torch.systems.system import bell_device_plan
 
     a = Assembler(unit_box((n, n), "quad"),
                   [Unknown("u"), Unknown("v"), Unknown("p", "linear")],
@@ -2433,11 +2517,11 @@ def phase_amr() -> dict:
     set-up and solve seconds, B1 launches by level; then B1 on the finest
     reduced operator, and solve_conforming on the last cycle with at most
     AMR_CONFORMING_MAX_DOFS dofs."""
+    from femus_tpu_torch.algebra.bell import bell_device_plan
     from femus_tpu_torch.assembly.norms import error_norms
     from femus_tpu_torch.mesh.amr import flag_by_error, refine_selective
     from femus_tpu_torch.systems import amr
-    from femus_tpu_torch.systems.system import (bell_device_plan,
-                                                launch_counts)
+    from femus_tpu_torch.systems.system import launch_counts
 
     problem = amr_problem()
     meshes = [lshape_mesh(AMR_COARSE)]
@@ -2583,6 +2667,778 @@ def run_slice7() -> dict:
     return out
 
 
+# ---- slice 8: the remaining forms, surface FE, the batch-first layout,
+# mixed-element meshes and the nonlocal operator (kernel B1) ---------------
+
+def heated_cavity_bc(var, x, grp, t):
+    """The de Vahl Davis walls: no-slip everywhere, T = 0.5 on x = 0 and
+    -0.5 on x = 1, insulated top and bottom."""
+    if var in ("u", "v"):
+        return True, 0.0
+    if var == "T":
+        if abs(x[0]) < 1e-9:
+            return True, 0.5
+        if abs(x[0] - 1.0) < 1e-9:
+            return True, -0.5
+    return False, 0.0
+
+
+def boussinesq_system(coarse: int, levels: int, device, dtype, rtol: float,
+                      max_nonlinear: int):
+    """The differentially heated cavity through the port's public entry
+    points, configured as cavity-128 (RCM, interleaved dofs,
+    operator="bell", Vanka V-cycle GMRES(60)); the pressure is pinned at
+    its first dof, as in the lid-driven cavity."""
+    from femus_tpu_torch.assembly.forms import boussinesq
+    from femus_tpu_torch.mesh.generation import unit_box
+    from femus_tpu_torch.mesh.multilevel import MultiLevelMesh
+    from femus_tpu_torch.mesh.reorder import rcm_reorder_hierarchy
+    from femus_tpu_torch.systems.problem import MultiLevelProblem
+    from femus_tpu_torch.systems.solution import MultiLevelSolution
+    from femus_tpu_torch.systems.system import NonLinearImplicitSystem
+
+    ml_mesh = MultiLevelMesh(unit_box((coarse, coarse)), levels)
+    rcm_reorder_hierarchy(ml_mesh)
+    ml_sol = MultiLevelSolution(ml_mesh)
+    for n in ("u", "v", "T"):
+        ml_sol.add_solution(n, "biquadratic")
+    ml_sol.add_solution("p", "disc_linear")
+    for n in ("u", "v", "p", "T"):
+        ml_sol.initialize(n)
+    ml_sol.attach_bc(heated_cavity_bc)
+    ml_sol.generate_bdc("u", "v", "p", "T")
+    ml_sol.fix_solution_at_point("p", 0, 0.0)
+    prob = MultiLevelProblem(ml_mesh, ml_sol, quad_order="fifth")
+    sys_ = prob.add_system(NonLinearImplicitSystem, "Boussinesq")
+    sys_.add_unknown("u", "v", "p", "T")
+    sys_.set_assembly(boussinesq(("u", "v"), "p", "T",
+                                 pres_family="disc_linear", ra=BOUS_RA,
+                                 pr=BOUS_PR))
+    cfg = sys_.config
+    cfg.operator = "bell"
+    cfg.interleave_dofs = True
+    cfg.smoother = "vanka"
+    cfg.mg_type = "V"
+    cfg.rtol = rtol
+    cfg.restart = 60
+    cfg.max_outer = 10
+    cfg.max_nonlinear = max_nonlinear
+    sys_.init(device=device, dtype=dtype)
+    return sys_, ml_sol
+
+
+def hot_wall_nusselt(mesh, T: np.ndarray, device) -> float:
+    """Nu = -int_0^1 dT/dx(0, y) dy from the wall elements' Q2 values of T,
+    in float64: a volume face form integrates dT/dx phi_i over the faces
+    of group 1 (x = 0) and the residual is summed over i (the basis sums to
+    one)."""
+    from femus_tpu_torch.assembly.engine import Assembler, Unknown
+
+    a = Assembler(mesh, [Unknown("T")], dtype=torch.float64, device=device)
+    a.set_volume_form(lambda ops, u, aux: {})
+
+    def wall_flux(fops, u, grp, aux):
+        g = fops.grad("biquadratic", u["T"])[:, 0]
+        return {"T": fops.t("biquadratic", g * (grp == 1).to(g.dtype))}
+
+    a.set_face_form(wall_flux, volume=True)
+    R, _ = a.make_assemble_fn(with_jacobian=False)(
+        torch.as_tensor(T, dtype=torch.float64, device=device))
+    return -float(R.sum())
+
+
+def cavity_observables(mesh, sol: dict, device) -> dict:
+    """Nu on the hot wall, u_max on x = 0.5 and v_max on y = 0.5 in units
+    of kappa / L (nodal values times sqrt(Ra Pr)), and the range of T."""
+    x = mesh.coords[mesh.dofmap("biquadratic").nodes]
+    scale = np.sqrt(BOUS_RA * BOUS_PR)
+    return {"nu": hot_wall_nusselt(mesh, sol["T"], device),
+            "u_max": float(sol["u"][np.abs(x[:, 0] - 0.5) < 1e-9].max())
+            * scale,
+            "v_max": float(sol["v"][np.abs(x[:, 1] - 0.5) < 1e-9].max())
+            * scale,
+            "t_min": float(sol["T"].min()), "t_max": float(sol["T"].max())}
+
+
+def phase_bous_main(sys_, ml_sol, setup_s: float) -> dict:
+    """The slice's main path: the Boussinesq Newton solve of
+    boussinesq-cavity-128 on the card, with the de Vahl Davis gates."""
+    from femus_tpu_torch.systems.system import launch_counts
+
+    reset_launches()
+    _flush_buffer.clear()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sys_.solve()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    hist = sys_.history
+    for h in hist:
+        emit({"phase": "bous_step", "it": h["newton_it"],
+              "seconds": h["seconds"], "gmres_iters": h["lin_iters"],
+              "lin_res": h["lin_res"], "lin_target": h["lin_target"],
+              "converged": h["converged"], "res_norm": h["res_norm"],
+              "kernel_launches": h["kernel_launches"], "eps": h["eps"]})
+    drop = hist[0]["res_norm"] / max(hist[-1]["res_norm"], 1e-300)
+    sol = {n: ml_sol.sol[-1][n] for n in ("u", "v", "p", "T")}
+    obs = cavity_observables(sys_.ml_mesh.finest(), sol, "cuda")
+    rel = {k: abs(obs[k] - v) / v for k, v in BOUS_BENCH.items()}
+    rep = {"phase": "bous_main", "setup_s": setup_s, "wall_s": wall,
+           "newton_steps": len(hist),
+           "gmres_iters": [h["lin_iters"] for h in hist],
+           "step_seconds": [h["seconds"] for h in hist],
+           "res_norm_drop": drop,
+           "all_converged": all(h["converged"] for h in hist),
+           "observables": obs, "benchmark": BOUS_BENCH, "rel_err": rel,
+           "kernel_launches": launches,
+           "peak_device_bytes": torch.cuda.max_memory_allocated(),
+           "levels": [a.n_dofs for a in sys_.assemblers],
+           "fields_finite": all(np.all(np.isfinite(v)) for v in sol.values()),
+           "tensors_on_cuda": _all_on_cuda(sys_),
+           "routing": sys_.solver_info()["routing"]}
+    emit(rep)
+    if not rep["all_converged"]:
+        raise AssertionError("bous_main: a linear solve missed its rtol")
+    if not drop >= 1e3:
+        raise AssertionError(f"bous_main: ||R(u)|| fell only {drop:.3g}x")
+    if not (obs["t_min"] >= -0.5 - 1e-3 and obs["t_max"] <= 0.5 + 1e-3):
+        raise AssertionError(f"bous_main: T left [-0.5, 0.5]: {obs}")
+    if not max(rel.values()) <= BOUS_TOL:
+        raise AssertionError(f"bous_main: off the benchmark: {rel}")
+    if not (launches["bell_spmv"] > 0 and rep["fields_finite"]
+            and rep["tensors_on_cuda"]):
+        raise AssertionError("bous_main: no B1 launch, tensors off the "
+                             "card or non-finite fields")
+    return rep
+
+
+def phase_bous_reference() -> None:
+    """The heated cavity on unit_box((4,4)), 3 levels: the card's float32
+    solve against the host's float64, every field to 1e-3 relative."""
+    from femus_tpu_torch.systems.system import launch_counts
+
+    fields, runs = {}, {}
+    for device, dtype in (("cuda", torch.float32), ("cpu", torch.float64)):
+        t0 = time.perf_counter()
+        sys_, ml_sol = boussinesq_system(4, 3, device, dtype, rtol=1e-6,
+                                         max_nonlinear=5)
+        n0 = launch_counts()["bell_spmv"]
+        sys_.solve()
+        fields[device] = {n: ml_sol.sol[-1][n].copy()
+                          for n in ("u", "v", "p", "T")}
+        runs[device] = {"seconds": time.perf_counter() - t0,
+                        "gmres_iters": [h["lin_iters"]
+                                        for h in sys_.history],
+                        "b1_launches": launch_counts()["bell_spmv"] - n0}
+    rel = {n: float(np.linalg.norm(fields["cuda"][n] - ref)
+                    / np.linalg.norm(ref))
+           for n, ref in fields["cpu"].items()}
+    emit({"phase": "bous_reference", "rel_diff": rel, "runs": runs,
+          "n_dofs": int(sum(f.size for f in fields["cpu"].values()))})
+    if not max(rel.values()) < 1e-3:
+        raise AssertionError(f"card and host Boussinesq differ: {rel}")
+
+
+def sphere_cap(x, xp=np):
+    """The R = WILLMORE_R sphere cap over the unit square and its
+    curvature field: (u, W = -1/u)."""
+    u = xp.sqrt(WILLMORE_R ** 2 - (x[:, 0] - 0.5) ** 2 - (x[:, 1] - 0.5) ** 2)
+    return u, -1.0 / u
+
+
+def forms_system(kind: str, coarse: int, levels: int, dtype):
+    """One solve of forms-128 through the port's public entry points:
+    "biharmonic" (coupled, u = sin(pi x) sin(pi y), Chebyshev V-cycle
+    GMRES(60) to 1e-10, LinearImplicitSystem) or "willmore" (the sphere
+    cap from its interpolant, Vanka V-cycle GMRES(60), seventh-order
+    quadrature, Newton to nonlinear_tol 1e-11); operator="bell"."""
+    from femus_tpu_torch.assembly.forms import (biharmonic_coupled,
+                                                willmore_graph)
+    from femus_tpu_torch.mesh.generation import unit_box
+    from femus_tpu_torch.mesh.multilevel import MultiLevelMesh
+    from femus_tpu_torch.systems.problem import MultiLevelProblem
+    from femus_tpu_torch.systems.solution import MultiLevelSolution
+    from femus_tpu_torch.systems.system import (LinearImplicitSystem,
+                                                NonLinearImplicitSystem)
+
+    pi = np.pi
+    names = ("u", "v") if kind == "biharmonic" else ("u", "W")
+    ml_mesh = MultiLevelMesh(unit_box((coarse, coarse)), levels)
+    ml_sol = MultiLevelSolution(ml_mesh)
+    for n in names:
+        ml_sol.add_solution(n, "biquadratic")
+    if kind == "biharmonic":
+        for n in names:
+            ml_sol.initialize(n)
+        ml_sol.attach_bc(lambda var, x, grp, t: (True, 0.0))
+    else:
+        ml_sol.initialize("u", lambda x: sphere_cap(x)[0])
+        ml_sol.initialize("W", lambda x: sphere_cap(x)[1])
+        ml_sol.attach_bc(lambda var, x, grp, t: (True, float(
+            sphere_cap(x[None])[0 if var == "u" else 1][0])))
+    ml_sol.generate_bdc()
+    prob = MultiLevelProblem(ml_mesh, ml_sol, quad_order=(
+        "fifth" if kind == "biharmonic" else "seventh"))
+    if kind == "biharmonic":
+        sys_ = prob.add_system(LinearImplicitSystem, "BH")
+        sys_.set_assembly(biharmonic_coupled(
+            rhs=lambda x: 4 * pi ** 4 * torch.sin(pi * x[:, 0])
+            * torch.sin(pi * x[:, 1])))
+    else:
+        sys_ = prob.add_system(NonLinearImplicitSystem, "Willmore")
+        sys_.set_assembly(willmore_graph("u", "W"))
+    sys_.add_unknown(*names)
+    cfg = sys_.config
+    cfg.operator = "bell"
+    cfg.smoother = "chebyshev" if kind == "biharmonic" else "vanka"
+    cfg.rtol = 1e-10
+    cfg.restart = 60
+    cfg.max_outer = 10
+    cfg.max_nonlinear = 8
+    cfg.nonlinear_tol = 1e-11
+    sys_.init(device="cuda", dtype=dtype)
+    return sys_, ml_mesh, ml_sol
+
+
+def phase_forms() -> dict:
+    """forms-128: each form solved at FORMS_LEVELS - 1 and FORMS_LEVELS
+    levels; L2 errors (norms on the card), the order between the two, and
+    the biharmonic's v against its exact 2 pi^2 u."""
+    from femus_tpu_torch.assembly.norms import error_norms
+    from femus_tpu_torch.systems.system import launch_counts
+
+    pi = np.pi
+    exact_bh = lambda x: torch.sin(pi * x[:, 0]) * torch.sin(pi * x[:, 1])  # noqa
+    out, launches = {}, 0
+    for kind in ("biharmonic", "willmore"):
+        rows = []
+        for levels in (FORMS_LEVELS - 1, FORMS_LEVELS):
+            reset_launches()
+            t0 = time.perf_counter()
+            sys_, ml_mesh, ml_sol = forms_system(kind, FORMS_COARSE, levels,
+                                                 torch.float64)
+            setup_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            info = sys_.solve()
+            torch.cuda.synchronize()
+            solve_s = time.perf_counter() - t0
+            mesh = ml_mesh.finest()
+            if kind == "biharmonic":
+                err = error_norms(mesh, "biquadratic", ml_sol.sol[-1]["u"],
+                                  exact_bh, device="cuda")[0]
+                err_v = error_norms(mesh, "biquadratic", ml_sol.sol[-1]["v"],
+                                    lambda x: 2 * pi ** 2 * exact_bh(x),
+                                    device="cuda")[0] / (2 * pi ** 2)
+                solves = [info]
+                row = {"l2_error_v_over_2pi2": err_v}
+            else:
+                err = error_norms(mesh, "biquadratic", ml_sol.sol[-1]["u"],
+                                  lambda x: sphere_cap(x, torch)[0],
+                                  device="cuda")[0]
+                solves = sys_.history
+                row = {"newton_steps": len(solves),
+                       "eps": solves[-1]["eps"]}
+            row.update({"levels": levels, "n_dofs": sys_.assemblers[-1].n_dofs,
+                        "setup_s": setup_s, "solve_s": solve_s,
+                        "gmres_iters": [h.get("iters", h.get("lin_iters"))
+                                        for h in solves],
+                        "converged": all(h["converged"] for h in solves),
+                        "l2_error": err,
+                        "b1_launches": launch_counts()["bell_spmv"]})
+            row["b1_held"] = b1_on_system(sys_)
+            launches += row["b1_launches"]
+            rows.append(row)
+            del sys_, ml_mesh, ml_sol
+        order = float(np.log2(rows[0]["l2_error"] / rows[1]["l2_error"]))
+        out[kind] = {"rows": rows, "l2_order": order}
+        emit({"phase": "forms", "form": kind, "l2_order": order,
+              "rows": rows})
+    bh, wm = out["biharmonic"], out["willmore"]
+    if not all(r["converged"] for f in (bh, wm) for r in f["rows"]):
+        raise AssertionError("forms: a solve missed its rtol")
+    if not solves_on_b1(bh["rows"] + wm["rows"]):
+        raise AssertionError("forms: no B1 launch, or B1 disagrees")
+    if not (bh["l2_order"] > 2.3 and all(
+            r["l2_error_v_over_2pi2"] <= 10 * r["l2_error"]
+            for r in bh["rows"])):
+        raise AssertionError(f"forms: biharmonic gates: {bh}")
+    if not (wm["l2_order"] > 2.5
+            and all(r["newton_steps"] <= 8 for r in wm["rows"])):
+        raise AssertionError(f"forms: Willmore gates: {wm}")
+    return {"launches": launches}
+
+
+def b1_on_operator(op) -> dict:
+    """B1 against its plain version on the frame operator ``op`` of a path
+    (a ``BellBackedOp``'s ``bell``), in its value type, on a seeded x."""
+    gen = torch.Generator(device="cpu").manual_seed(1)
+    x = torch.randn(op.dev.n, generator=gen, dtype=op.vals.dtype)
+    return b1_held(op, x.to(op.vals.device),
+                   1e-12 if op.vals.dtype == torch.float64 else 1e-5)
+
+
+def b1_on_system(sys_) -> dict:
+    """B1 against its plain version on a system's finest operator at its
+    current state, in the device plan its solve uses."""
+    from femus_tpu_torch.algebra import bell
+
+    a = sys_.assemblers[-1]
+    u = torch.as_tensor(sys_.gather(-1), dtype=sys_.dtype, device=sys_.device)
+    _, data = a.make_assemble_fn(pass_tables=True)(
+        u, a.device_tables_cached(), sys_.aux_scalars, sys_._aux_arrays(-1))
+    return b1_on_operator(bell.relayout_ell(sys_._bell_dev(a.pattern), data,
+                                            device=sys_.device))
+
+
+def half_cylinder(p):
+    """The unit square onto the half cylinder of radius 1, height 1."""
+    phi = np.pi * p[:, 0]
+    return np.stack([np.cos(phi), np.sin(phi), p[:, 1]], axis=-1)
+
+
+def surface_solve(n: int, dtype=torch.float64, tol=1e-10) -> dict:
+    """Laplace-Beltrami -Lap_G u = (1 + pi^2) u on the half cylinder
+    (tests/test_surface.py), u = sin(phi) sin(pi z) = y sin(pi z): one
+    assembly through the manifold branch of the element geometry, then
+    Jacobi-CG with its matvec on the BELL frame."""
+    from femus_tpu_torch.algebra.bell import on_bell_frame
+    from femus_tpu_torch.algebra.krylov import jacobi_cg
+    from femus_tpu_torch.assembly.bc import generate_bdc
+    from femus_tpu_torch.assembly.engine import Assembler, Unknown
+    from femus_tpu_torch.assembly.forms import poisson
+    from femus_tpu_torch.assembly.norms import error_norms, integrate_field
+    from femus_tpu_torch.mesh.generation import map_to_surface, unit_box
+    from femus_tpu_torch.systems.system import launch_counts
+
+    pi = np.pi
+    exact = lambda x: x[:, 1] * torch.sin(pi * x[:, 2])        # noqa: E731
+    t0 = time.perf_counter()
+    mesh = map_to_surface(unit_box((n, n)), half_cylinder)
+    a = Assembler(mesh, [Unknown("u")], quad_order="seventh", dtype=dtype,
+                  device="cuda")
+    a.set_volume_form(poisson("u", rhs=lambda x: (1 + pi ** 2) * exact(x)))
+    generate_bdc(a, lambda var, x, grp, t: (True, 0.0))
+    assemble = a.make_assemble_fn()
+    setup_s = time.perf_counter() - t0
+    u0 = torch.zeros(a.n_dofs, dtype=dtype, device="cuda")
+    assemble(u0)                                   # warm
+    t0 = time.perf_counter()
+    R, data = assemble(u0)
+    torch.cuda.synchronize()
+    asm_s = time.perf_counter() - t0
+    routing = []
+    A = on_bell_frame(a.op_with(data), a.pattern, "cuda", routing)
+    n0 = launch_counts()["bell_spmv"]
+    t0 = time.perf_counter()
+    u, info = jacobi_cg(A, -R, tol=tol, maxiter=60000)
+    torch.cuda.synchronize()
+    solve_s = time.perf_counter() - t0
+    launches = launch_counts()["bell_spmv"] - n0
+    one = torch.ones(a.n_dofs, dtype=dtype, device="cuda")
+    return {"n": n, "n_dofs": a.n_dofs, "setup_s": setup_s,
+            "assembly_s": asm_s, "solve_s": solve_s, "b1_launches": launches,
+            "b1_held": b1_on_operator(A.bell) if hasattr(A, "bell")
+            and A.bell.vals.is_cuda else None, "cg_iters": info.iters,
+            "converged": info.converged, "residual": info.residual,
+            "l2_error": error_norms(mesh, "biquadratic", u, exact,
+                                    device="cuda")[0],
+            "area": integrate_field(mesh, "biquadratic", one, device="cuda"),
+            "routing": routing[0]}
+
+
+def solves_on_b1(rows) -> bool:
+    """Every solve launched B1 and B1 held against its plain version on
+    the solve's operator."""
+    return all(r["b1_launches"] > 0 and r["b1_held"]["ok"]
+               and r["b1_held"]["repeats_bit_for_bit"] for r in rows)
+
+
+def phase_surface() -> dict:
+    """surface-cylinder-256 and the 128x128 mesh for the order."""
+    rows = [surface_solve(SURF_N // 2), surface_solve(SURF_N)]
+    order = float(np.log2(rows[0]["l2_error"] / rows[1]["l2_error"]))
+    rep = {"phase": "surface", "rows": rows, "l2_order": order,
+           "area_error": abs(rows[1]["area"] - np.pi)}
+    emit(rep)
+    if not all(r["converged"] for r in rows):
+        raise AssertionError("surface: a CG solve missed its tolerance")
+    if not (rep["area_error"] < 1e-9 and order > 2.5):
+        raise AssertionError(f"surface: area or order: {rep}")
+    if not solves_on_b1(rows):
+        raise AssertionError("surface: no B1 launch, or B1 disagrees")
+    return {"launches": sum(r["b1_launches"] for r in rows)}
+
+
+def holomorphic_map(x):
+    """The exact minimizer Dx = f(z) - z of f(z) = z + 0.1 z^2."""
+    return 0.1 * (x[:, 0] ** 2 - x[:, 1] ** 2), 0.2 * x[:, 0] * x[:, 1]
+
+
+def conformal_system(n: int, dtype=torch.float64):
+    """conformal_minimization(("Dx1", "Dx2")) with normal=None on
+    unit_box((n,n)) Q2 through the port's public entry points: Dirichlet
+    data of the holomorphic map, started from it plus the bump
+    +-0.03 sin(pi x) sin(pi y) (tests/test_conformal.py), Newton with
+    Jacobi-GMRES(60) to rtol 1e-10 on the BELL frame (one level)."""
+    from femus_tpu_torch.assembly.conformal import conformal_minimization
+    from femus_tpu_torch.mesh.generation import unit_box
+    from femus_tpu_torch.mesh.multilevel import MultiLevelMesh
+    from femus_tpu_torch.systems.problem import MultiLevelProblem
+    from femus_tpu_torch.systems.solution import MultiLevelSolution
+    from femus_tpu_torch.systems.system import NonLinearImplicitSystem
+
+    def bump(x):
+        return 0.03 * np.sin(np.pi * x[:, 0]) * np.sin(np.pi * x[:, 1])
+
+    ml_mesh = MultiLevelMesh(unit_box((n, n), "quad"), 1)
+    ml_sol = MultiLevelSolution(ml_mesh)
+    ml_sol.add_solution("Dx1")
+    ml_sol.add_solution("Dx2")
+    ml_sol.initialize("Dx1", lambda x: holomorphic_map(x)[0] + bump(x))
+    ml_sol.initialize("Dx2", lambda x: holomorphic_map(x)[1] - bump(x))
+    ml_sol.attach_bc(lambda var, x, grp, t: (True, float(holomorphic_map(
+        x[None])[0 if var == "Dx1" else 1][0])))
+    ml_sol.generate_bdc()
+    prob = MultiLevelProblem(ml_mesh, ml_sol, quad_order="fifth")
+    sys_ = prob.add_system(NonLinearImplicitSystem, "Conformal")
+    sys_.add_unknown("Dx1", "Dx2")
+    sys_.set_assembly(conformal_minimization(("Dx1", "Dx2")))
+    cfg = sys_.config
+    cfg.operator = "bell"
+    cfg.use_mg = False
+    cfg.rtol = 1e-10
+    cfg.restart = 60
+    cfg.max_outer = 500
+    cfg.max_nonlinear = 12
+    cfg.nonlinear_tol = 1e-12
+    sys_.init(device="cuda", dtype=dtype)
+    return sys_, ml_mesh, ml_sol
+
+
+def phase_conformal() -> dict:
+    """conformal-128: the batch-first layout on the card.  Gates: at most
+    12 Newton steps, every linear solve converged, Dx equal to the
+    holomorphic map to 1e-9, conformal energy below 1e-10, B1 launched."""
+    from femus_tpu_torch.assembly.conformal import conformal_energy
+    from femus_tpu_torch.assembly.engine import ElemOps
+    from femus_tpu_torch.systems.system import launch_counts
+
+    t0 = time.perf_counter()
+    sys_, ml_mesh, ml_sol = conformal_system(CONF_N)
+    setup_s = time.perf_counter() - t0
+    a = sys_.assemblers[-1]
+    tables = a.device_tables_cached()
+    assemble = a.make_assemble_fn(pass_tables=True)
+    u0 = torch.as_tensor(sys_.gather(-1), device="cuda")
+    assemble(u0, tables)                           # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    assemble(u0, tables)
+    torch.cuda.synchronize()
+    asm_s = time.perf_counter() - t0
+    reset_launches()
+    t0 = time.perf_counter()
+    sys_.solve()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    hist = sys_.history
+    mesh = ml_mesh.finest()
+    x = mesh.coords[mesh.dofmap("biquadratic").nodes]
+    ex = holomorphic_map(x)
+    err = max(float(np.abs(ml_sol.sol[-1]["Dx1"] - ex[0]).max()),
+              float(np.abs(ml_sol.sol[-1]["Dx2"] - ex[1]).max()))
+    conn = torch.as_tensor(mesh.dofmap("biquadratic").conn, device="cuda")
+    d1, d2 = (torch.as_tensor(ml_sol.sol[-1][n], device="cuda")[conn]
+              for n in ("Dx1", "Dx2"))
+    energy = float(torch.func.vmap(lambda c, p, q: conformal_energy(
+        ElemOps(tables["tabs"], tables["qweights"], c, a.dim),
+        {"Dx1": p, "Dx2": q}))(tables["coords_e"], d1, d2).sum())
+    rep = {"phase": "conformal", "n_dofs": a.n_dofs, "setup_s": setup_s,
+           "batch_first_assembly_s": asm_s, "wall_s": wall,
+           "newton_steps": len(hist),
+           "gmres_iters": [h["lin_iters"] for h in hist],
+           "step_seconds": [h["seconds"] for h in hist],
+           "all_converged": all(h["converged"] for h in hist),
+           "max_err_vs_holomorphic": err, "energy": energy,
+           "b1_launches": launch_counts()["bell_spmv"],
+           "routing": sys_.solver_info()["routing"]}
+    rep["b1_held"] = b1_on_system(sys_)
+    emit(rep)
+    if not (len(hist) <= 12 and rep["all_converged"]
+            and hist[-1]["eps"]["Dx1"] < 1e-10):
+        raise AssertionError(f"conformal: Newton: {rep}")
+    if not (err < 1e-9 and energy < 1e-10):
+        raise AssertionError(f"conformal: off the holomorphic map: {rep}")
+    if not solves_on_b1([rep]):
+        raise AssertionError("conformal: no B1 launch, or B1 disagrees")
+    return {"launches": rep["b1_launches"]}
+
+
+def mixed_poisson(n: int, dtype=torch.float64, tol=1e-12) -> dict:
+    """Q2 Poisson, exact sin(pi x) sin(pi y), on mixed_unit_box((n,n))
+    (quads left of x = 1/2, triangles right) through MixedAssembler, then
+    Jacobi-CG with its matvec on the BELL frame."""
+    from femus_tpu_torch.algebra.bell import on_bell_frame
+    from femus_tpu_torch.algebra.krylov import jacobi_cg
+    from femus_tpu_torch.assembly.engine import Unknown
+    from femus_tpu_torch.assembly.forms import poisson
+    from femus_tpu_torch.assembly.mixed import (MixedAssembler,
+                                                generate_bdc_mixed)
+    from femus_tpu_torch.assembly.norms import error_norms
+    from femus_tpu_torch.mesh.mixed import mixed_unit_box
+    from femus_tpu_torch.systems.system import launch_counts
+
+    pi = np.pi
+    exact = lambda x: torch.sin(pi * x[:, 0]) * torch.sin(pi * x[:, 1])  # noqa
+    t0 = time.perf_counter()
+    masm = MixedAssembler(mixed_unit_box((n, n)), [Unknown("u")],
+                          dtype=dtype, device="cuda")
+    masm.set_volume_form(poisson("u", rhs=lambda x: 2 * pi ** 2 * exact(x)))
+    generate_bdc_mixed(masm, lambda var, x, grp, t: (True, 0.0))
+    R, data = masm.make_assemble_fn()(torch.zeros(masm.n_dofs, dtype=dtype,
+                                                  device="cuda"))
+    routing = []
+    A = on_bell_frame(masm.op_with(data), masm.pattern, "cuda", routing)
+    setup_s = time.perf_counter() - t0
+    n0 = launch_counts()["bell_spmv"]
+    t0 = time.perf_counter()
+    u, info = jacobi_cg(A, -R, tol=tol, maxiter=60000)
+    torch.cuda.synchronize()
+    solve_s = time.perf_counter() - t0
+    launches = launch_counts()["bell_spmv"] - n0
+    err = float(np.sqrt(sum(error_norms(s.mesh, "biquadratic", u, exact,
+                                        device="cuda")[0] ** 2
+                            for s in masm.subs)))
+    return {"n": n, "n_dofs": masm.n_dofs, "blocks": masm.mesh.geoms,
+            "elements": masm.mesh.n_elems, "setup_s": setup_s,
+            "solve_s": solve_s, "b1_launches": launches,
+            "b1_held": b1_on_operator(A.bell) if hasattr(A, "bell")
+            and A.bell.vals.is_cuda else None, "cg_iters": info.iters,
+            "converged": info.converged, "l2_error": err,
+            "routing": routing[0]}
+
+
+def phase_mixed() -> dict:
+    """mixed-poisson-128 and the 64x64 mesh for the order."""
+    rows = [mixed_poisson(MIXED_N // 2), mixed_poisson(MIXED_N)]
+    order = float(np.log2(rows[0]["l2_error"] / rows[1]["l2_error"]))
+    rep = {"phase": "mixed", "rows": rows, "l2_order": order}
+    emit(rep)
+    if not (all(r["converged"] for r in rows) and order > 2.5):
+        raise AssertionError(f"mixed: convergence or order: {rep}")
+    if not solves_on_b1(rows):
+        raise AssertionError("mixed: no B1 launch, or B1 disagrees")
+    return {"launches": sum(r["b1_launches"] for r in rows)}
+
+
+def sw_system(kind: str, n: int, dtype=torch.float64):
+    """sw-128 through the port's public entry points on unit_box((n,n)) Q2,
+    Crank-Nicolson, dt SW_DT, operator="bell" with tests/test_sw.py's
+    solver (no multigrid, Jacobi-GMRES): "lake" = (h, u, v) at rest over
+    the bump b = 0.2 exp(-50 |x - c|^2) (an aux field), h + b = 1, walls
+    u = v = 0; "tracer" = tracer_advection of a Gaussian blob in the
+    uniform drift (0.5, 0) (aux fields), kappa 1e-4, c = 0 on the walls."""
+    from femus_tpu_torch.assembly.sw import shallow_water, tracer_advection
+    from femus_tpu_torch.mesh.generation import unit_box
+    from femus_tpu_torch.mesh.multilevel import MultiLevelMesh
+    from femus_tpu_torch.systems.problem import MultiLevelProblem
+    from femus_tpu_torch.systems.solution import MultiLevelSolution
+    from femus_tpu_torch.systems.transient import (
+        TransientNonlinearImplicitSystem, crank_nicolson)
+
+    ml_mesh = MultiLevelMesh(unit_box((n, n), "quad"), 1)
+    ml_sol = MultiLevelSolution(ml_mesh)
+    q2 = "biquadratic"
+    if kind == "lake":
+        def bump(x):
+            return 0.2 * np.exp(-50 * ((x[:, 0] - 0.5) ** 2
+                                       + (x[:, 1] - 0.5) ** 2))
+
+        names, aux = ("h", "u", "v"), ("b",)
+        for v in names:
+            ml_sol.add_solution(v, q2, time_order=1)
+        ml_sol.add_solution("b", q2)
+        ml_sol.initialize("h", lambda x: 1.0 - bump(x))
+        ml_sol.initialize("u")
+        ml_sol.initialize("v")
+        ml_sol.initialize("b", bump)
+        ml_sol.attach_bc(lambda var, x, grp, t: (var in ("u", "v"), 0.0))
+        base = shallow_water("h", ("u", "v"), q2, g=1.0,
+                             bathymetry_field="b")
+    else:
+        names, aux = ("c",), ("u", "v")
+        ml_sol.add_solution("c", q2, time_order=1)
+        ml_sol.add_solution("u", q2)
+        ml_sol.add_solution("v", q2)
+        ml_sol.initialize("c", lambda x: np.exp(
+            -60 * ((x[:, 0] - 0.35) ** 2 + (x[:, 1] - 0.5) ** 2)))
+        ml_sol.initialize("u", lambda x: 0.5 + 0 * x[:, 0])
+        ml_sol.initialize("v", lambda x: 0 * x[:, 0])
+        ml_sol.attach_bc(lambda var, x, grp, t: (var == "c", 0.0))
+        base = tracer_advection("c", ("u", "v"), q2, kappa=1e-4)
+    ml_sol.generate_bdc(*names)
+    prob = MultiLevelProblem(ml_mesh, ml_sol, quad_order="fifth")
+    sys_ = prob.add_system(TransientNonlinearImplicitSystem, kind)
+    sys_.add_unknown(*names)
+    for a in aux:
+        sys_.add_aux_field(a)
+    sys_.set_assembly(crank_nicolson(base, {v: q2 for v in names}))
+    cfg = sys_.config
+    cfg.operator = "bell"
+    cfg.outer = "gmres"
+    cfg.use_mg = False
+    if kind == "lake":
+        cfg.rtol = 1e-12
+        cfg.max_nonlinear = 6
+    sys_.init_time(SW_DT)
+    sys_.init(device="cuda", dtype=dtype)
+    return sys_, ml_mesh, ml_sol
+
+
+def phase_sw() -> dict:
+    """sw-128: SW_LAKE_STEPS steps of the lake at rest (h, u, v stay still
+    to 1e-8) and SW_TRACER_STEPS of the tracer (its centre of mass ends at
+    (0.55 +- 0.04, 0.5 +- 0.02), tests/test_sw.py's gate)."""
+    from femus_tpu_torch.systems.system import launch_counts
+
+    rep, launches = {"phase": "sw"}, 0
+    for kind, steps in (("lake", SW_LAKE_STEPS), ("tracer", SW_TRACER_STEPS)):
+        t0 = time.perf_counter()
+        sys_, ml_mesh, ml_sol = sw_system(kind, SW_N)
+        setup_s = time.perf_counter() - t0
+        start = {n: ml_sol.sol[-1][n].copy() for n in sys_.unknown_names}
+        reset_launches()
+        t0 = time.perf_counter()
+        newton, gmres, ok = [], [], True
+        for _ in range(steps):
+            sys_.time_step()
+            newton.append(len(sys_.history))
+            gmres.append(sum(h["lin_iters"] for h in sys_.history))
+            ok = ok and all(h["converged"] for h in sys_.history)
+        torch.cuda.synchronize()
+        row = {"n_dofs": sys_.assemblers[-1].n_dofs, "steps": steps,
+               "setup_s": setup_s, "wall_s": time.perf_counter() - t0,
+               "newton_steps": newton, "gmres_iters": gmres,
+               "all_converged": ok,
+               "b1_launches": launch_counts()["bell_spmv"]}
+        row["b1_held"] = b1_on_system(sys_)
+        launches += row["b1_launches"]
+        if kind == "lake":
+            row["max_dh"] = float(np.abs(ml_sol.sol[-1]["h"]
+                                         - start["h"]).max())
+            row["max_uv"] = max(float(np.abs(ml_sol.sol[-1][n]).max())
+                                for n in ("u", "v"))
+        else:
+            mesh = ml_mesh.finest()
+            xs = mesh.coords[mesh.dofmap("biquadratic").nodes]
+            c = ml_sol.sol[-1]["c"]
+            row["centre_of_mass"] = [float((xs[:, d] * c).sum() / c.sum())
+                                     for d in (0, 1)]
+        rep[kind] = row
+        del sys_, ml_mesh, ml_sol
+    emit(rep)
+    lake, tr = rep["lake"], rep["tracer"]
+    if not (lake["all_converged"] and tr["all_converged"]):
+        raise AssertionError("sw: a linear solve missed its rtol")
+    if not (lake["max_dh"] < 1e-8 and lake["max_uv"] < 1e-8):
+        raise AssertionError(f"sw: the lake moved: {lake}")
+    xc, yc = tr["centre_of_mass"]
+    if not (abs(xc - 0.55) <= 0.04 and abs(yc - 0.5) <= 0.02):
+        raise AssertionError(f"sw: tracer centre of mass {xc}, {yc}")
+    if not solves_on_b1([lake, tr]):
+        raise AssertionError("sw: no B1 launch, or B1 disagrees")
+    return {"launches": launches}
+
+
+def phase_nonlocal() -> dict:
+    """nonlocal-64 on the card in float64: the pair assembly, the
+    operator's symmetry and null space, B1 against its plain version on
+    this operator (rows of up to 357 entries), and solve_dirichlet (CG on
+    the BELL frame) with the core-shape gate of tests/test_nonlocal.py."""
+    import scipy.sparse as sp
+    from femus_tpu_torch.algebra.bell import bell_device_plan, on_bell_frame
+    from femus_tpu_torch.assembly.nonlocal_diffusion import NonlocalOperator
+    from femus_tpu_torch.mesh.generation import unit_box
+    from femus_tpu_torch.systems.system import launch_counts
+
+    pi = np.pi
+    t0 = time.perf_counter()
+    op = NonlocalOperator(unit_box((NONLOCAL_N, NONLOCAL_N), "quad"),
+                          "linear", delta=NONLOCAL_DELTA, quad_order=3,
+                          device="cuda", dtype=torch.float64)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    data = op._assemble()
+    torch.cuda.synchronize()
+    pair_s = time.perf_counter() - t0
+    pat = op.pattern
+    vals = data.cpu().numpy()
+    A = sp.csr_matrix((vals[pat.valid], (np.nonzero(pat.valid)[0],
+                                         pat.cols[pat.valid])),
+                      shape=(pat.n_rows, pat.n_cols))
+    amax = float(np.abs(vals).max())
+    sym = float(abs(A - A.T).max())
+    Ab = on_bell_frame(op.op(), pat, "cuda")
+    ones = float((Ab @ torch.ones(pat.n_rows, dtype=torch.float64,
+                                  device="cuda")).abs().max())
+    dev, _ = bell_device_plan(pat, "identity", "cuda")
+    k = b1_rows(data, pat, dev, "nonlocal_kernel", (("f64", torch.float64),))
+    reset_launches()
+    t0 = time.perf_counter()
+    u, info = op.solve_dirichlet(
+        lambda x: 2 * pi ** 2 * torch.sin(pi * x[:, 0])
+        * torch.sin(pi * x[:, 1]), lambda x: np.zeros(len(x)))
+    torch.cuda.synchronize()
+    solve_s = time.perf_counter() - t0
+    x = op.mesh.coords[op.dofmap.nodes]
+    exact = np.sin(pi * x[:, 0]) * np.sin(pi * x[:, 1])
+    core = ((x[:, 0] > 0.3) & (x[:, 0] < 0.7) & (x[:, 1] > 0.3)
+            & (x[:, 1] < 0.7))
+    ratio = u[core] / exact[core]
+    rep = {"phase": "nonlocal", "n_dofs": pat.n_rows, "nnz": int(pat.nnz),
+           "width": pat.width, "pairs": len(op.pairs), "setup_s": setup_s,
+           "pair_assembly_s": pair_s, "solve_s": solve_s,
+           "cg_iters": info.iters, "converged": info.converged,
+           "symmetry": sym / amax, "a_one": ones / amax,
+           "core_ratio_cv": float(ratio.std() / ratio.mean()),
+           "routing": op.routing, "kernel_launches": launch_counts()}
+    emit(rep)
+    if not (rep["symmetry"] < 1e-10 and rep["a_one"] < 1e-8):
+        raise AssertionError(f"nonlocal: symmetry or null space: {rep}")
+    if not (info.converged and rep["core_ratio_cv"] < 0.15
+            and np.isfinite(u).all()):
+        raise AssertionError(f"nonlocal: solve: {rep}")
+    if not (op.routing["path"] == "bell"
+            and rep["kernel_launches"]["bell_spmv"] > 0):
+        raise AssertionError("nonlocal: the solve ran no B1")
+    return {**k, "launches": rep["kernel_launches"]["bell_spmv"]}
+
+
+def run_slice8() -> dict:
+    """The slice-8 phases in order; their reports by short name."""
+    t0 = time.perf_counter()
+    bsys, bsol = boussinesq_system(COARSE_CELLS, LEVELS, "cuda",
+                                   torch.float32, rtol=1e-4,
+                                   max_nonlinear=BOUS_NEWTON)
+    setup_s = time.perf_counter() - t0
+    emit({"phase": "bous_setup", "seconds": setup_s,
+          "n_dofs": bsys.assemblers[-1].n_dofs,
+          "levels": [a.n_dofs for a in bsys.assemblers]})
+    out = {"kernel": phase_kernel(bsys, "bous_kernel")}
+    out["main"] = phase_bous_main(bsys, bsol, setup_s)
+    del bsys, bsol
+    phase_bous_reference()
+    out["forms"] = phase_forms()
+    out["surface"] = phase_surface()
+    out["conformal"] = phase_conformal()
+    out["mixed"] = phase_mixed()
+    out["sw"] = phase_sw()
+    out["nonlocal"] = phase_nonlocal()
+    return out
+
+
 def card_line() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2665,6 +3521,10 @@ def main() -> int:
         # slice 7: adaptive mesh refinement with multigrid across the AMR
         # levels
         s7 = run_slice7()
+        # slice 8: the Boussinesq cavity (the slice's main path), the other
+        # forms, surface FE, the batch-first layout, mixed-element meshes
+        # and the nonlocal operator, all through kernel B1
+        s8 = run_slice8()
         # slice 5: monolithic FSI on the BELL-frame operator, steady and
         # transient
         fsys, fsol, fsetup = phase_fsi_setup()
@@ -2715,6 +3575,21 @@ def main() -> int:
         "rediscretize_launches": redisc["launches"],
         "amr_values": "f64",
         **{"amr_" + key: s7["amr"][key]
+           for key in KERNEL_KEYS + ("fill",)},
+        # and on the slice-8 paths: the Boussinesq Jacobian
+        # (boussinesq-cavity-128, float32) and the nonlocal operator
+        # (nonlocal-64, float64, rows of up to 357)
+        "bous_launches": s8["main"]["kernel_launches"]["bell_spmv"],
+        "forms_launches": s8["forms"]["launches"],
+        "surface_launches": s8["surface"]["launches"],
+        "conformal_launches": s8["conformal"]["launches"],
+        "mixed_launches": s8["mixed"]["launches"],
+        "sw_launches": s8["sw"]["launches"],
+        "nonlocal_launches": s8["nonlocal"]["launches"],
+        **{"bous_" + key: s8["kernel"][key]
+           for key in KERNEL_KEYS + ("fill",)},
+        "nonlocal_values": "f64",
+        **{"nonlocal_" + key: s8["nonlocal"][key]
            for key in KERNEL_KEYS + ("fill",)}}, {
         "name": "patch_stencil", "route": "cuda",
         "source": "femus_tpu_torch/algebra/csrc/patch_stencil.cu",

@@ -599,3 +599,43 @@ def bell_backed(plan, op) -> BellBackedOp:
     :class:`SellPlan`, or a :class:`SellDev`."""
     return BellBackedOp(op.data, op.cols, op.n_cols,
                         relayout_ell(plan, op.data, device=op.data.device))
+
+
+# rows from which an operator's matvec runs on the sliced-ELL operator of
+# the BELL frame (kernel B1); below, the ELL gather is already cheap
+BELL_MIN_ROWS = 2048
+
+
+def bell_device_plan(pattern, order: str = "identity", device="cuda"):
+    """(device plan, routing note) of an operator pattern: the sliced-ELL
+    layout in the BELL frame, identity (``order="identity"``, rebuilt with
+    RCM when the identity slab would exceed 24 B per nonzero) or RCM."""
+    plan = build_bell_plan(pattern,
+                           perm="identity" if order == "identity" else None)
+    note = {"order": order}
+    if order == "identity" and plan.nnz_bytes_ratio > 24.0:
+        ratio = plan.nnz_bytes_ratio
+        plan = build_bell_plan(pattern)        # RCM rescue
+        note = {"order": "rcm-rescue",
+                "reason": f"identity slab {ratio:.1f} B/nnz > 24.0, "
+                          f"rebuilt with RCM ({plan.nnz_bytes_ratio:.1f})"}
+    sell = plan.sell()
+    note = {"path": "bell", "kernel": "bell_spmv", "sigma": sell.sigma,
+            "fill": round(sell.fill, 4), **note}
+    return sell.to_device(resolve_device(device)), note
+
+
+def on_bell_frame(op, pattern, device, routing: Optional[list] = None):
+    """``op`` with its matvec on the sliced-ELL operator of the BELL frame
+    (kernel B1) from BELL_MIN_ROWS rows, else ``op`` itself; the decision
+    is appended to ``routing``."""
+    if pattern.n_rows < BELL_MIN_ROWS:
+        note = {"n_rows": pattern.n_rows, "path": "ell",
+                "reason": f"below bell threshold ({BELL_MIN_ROWS} rows)"}
+    else:
+        dev, note = bell_device_plan(pattern, "identity", device)
+        note = {"n_rows": pattern.n_rows, **note}
+        op = bell_backed(dev, op)
+    if routing is not None:
+        routing.append(note)
+    return op

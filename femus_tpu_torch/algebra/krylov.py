@@ -50,6 +50,26 @@ def cg(A: Callable, b: torch.Tensor, x0=None, M: Optional[Callable] = None,
     return x, SolveInfo(k, res, bool(res <= target), target)
 
 
+def jacobi_cg(A, b: torch.Tensor, mask: Optional[torch.Tensor] = None,
+              tol: float = 1e-10, maxiter: int = 1000):
+    """:func:`cg` on the operator ``A`` (``matvec``, ``diagonal``),
+    preconditioned by its diagonal; diagonal entries below 1e-300 in size
+    count as 1.  ``mask`` (bool per row): rows and columns held out of the
+    solve (eliminated Dirichlet rows; ``b`` must vanish there, and so does
+    the result).  Returns (x, SolveInfo)."""
+    d = A.diagonal()
+    op = A.matvec
+    if mask is not None:
+        d = torch.where(mask, 1.0, d)
+
+        def op(v):
+            v = torch.where(mask, 0.0, v)
+            return torch.where(mask, v, A.matvec(v))
+
+    d = torch.where(d.abs() < 1e-300, 1.0, d)
+    return cg(op, b, M=lambda r: r / d, tol=tol, maxiter=maxiter)
+
+
 def _givens(a: float, b: float):
     """Stable Givens rotation (c, s) with c*a + s*b = r, -s*a + c*b = 0."""
     h = float(np.hypot(a, b))

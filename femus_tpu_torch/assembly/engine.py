@@ -1,4 +1,4 @@
-"""Batched element assembly engine (element-last layout).
+"""Batched element assembly engine.
 
 One pass over all elements of a mesh level:
 
@@ -7,6 +7,12 @@ One pass over all elements of a mesh level:
   basis tangents for the element Jacobians (``torch.func.jvp`` under
   ``torch.func.vmap``; exact, because element residuals are local)  ->
   ``index_add_`` scatter into the ELL value array + residual.
+
+A form written per element sets ``form.layout = "batch_first"``: it then
+runs through :class:`ElemOps` under ``torch.func.vmap`` over the elements,
+with ``vmap(jacfwd(...))`` for the element Jacobians.  Meshes embedded in a
+higher-dimensional space (surface FE, ``mesh.generation.map_to_surface``)
+integrate with the first fundamental form in either layout.
 
 Block layout: unknowns are stacked into one global dof vector with static
 per-variable offsets (KKoffset); ``interleave=True`` permutes the stacked
@@ -31,7 +37,8 @@ from ..algebra.patchstencil import (K, apply_dirichlet, build_patch_slots,
                                     build_patch_tables, dirichlet_masks,
                                     make_block_patch_op, make_patch_op,
                                     patch_meta, patch_routing)
-from ..algebra.sparse import EllPattern, SparseOp, pattern_from_pairs
+from ..algebra.sparse import (EllPattern, SparseOp, op_from_pattern,
+                              pattern_from_pairs)
 from ..fe.geom import GEOMS
 from ..fe.quadrature import gauss
 from ..fe.basis import get_basis
@@ -48,8 +55,8 @@ class Unknown:
 
 
 def _det_inv_batched(J):
-    """Determinant and inverse of J[q, a, b, e] over the (a, b) axes for
-    dim 1/2/3 — explicit adjugate, element axis stays last."""
+    """Determinant and inverse of J[q, a, b, ...] over the (a, b) axes for
+    dim 1/2/3 — explicit adjugate, any trailing (element) axes stay last."""
     d = J.shape[1]
     if d == 1:
         det = J[:, 0, 0]
@@ -75,31 +82,47 @@ def _det_inv_batched(J):
     return det, adjT / det[:, None, None]
 
 
+def _element_geometry(gdphi, weights, coords):
+    """(wdet, M) of the geometric map of ``coords`` (nd_geo, sdim[, ne]):
+    the quadrature weights times the volume element (nq[, ne]) and the map
+    M[q, d, x[, e]] taking reference derivatives to physical gradients,
+    dphi[q, n, x] = dphi_ref[q, n, d] M[q, d, x].  On an embedded manifold
+    (sdim > dim: surface or curve FE) the first fundamental form G = J J^T
+    gives the area element sqrt(det G) and the tangential gradients
+    M = G^-1 J in ambient coordinates.  The coordinates are centred per
+    element before contracting: sum_n dphi = 0, so J is unchanged while the
+    operands shrink from absolute-coordinate to element-size scale (with
+    full-f32 matmuls, set in the package __init__, this keeps determinants
+    sign-accurate on fine meshes)."""
+    # J[q, d, x] = dx_x / dxi_d  (d: reference, x: ambient)
+    J = torch.einsum("qnd,nx...->qdx...", gdphi,
+                     coords - coords.mean(dim=0, keepdim=True))
+    w = weights.reshape((-1,) + (1,) * (coords.ndim - 2))
+    if J.shape[1] == J.shape[2]:
+        det, inv = _det_inv_batched(J)                # inv[q, x, d, ...]
+        return w * det.abs(), inv.transpose(1, 2)
+    G = torch.einsum("qdx...,qbx...->qdb...", J, J)
+    detG, invG = _det_inv_batched(G)
+    return (w * torch.sqrt(detG),
+            torch.einsum("qdb...,qbx...->qdx...", invG, J))
+
+
 class ElemOpsBatched:
     """Quadrature operations over all elements, element axis LAST.
 
     Scalars at quadrature points are (nq, ne); element-local dof vectors
-    are (nd, ne); ``aux['group']`` is (ne,)."""
+    are (nd, ne); ``aux['group']`` is (ne,).  ``coords`` (nd_geo, sdim, ne)
+    may be embedded (sdim > dim): gradients are then tangential, (nq, sdim,
+    ne)."""
 
     def __init__(self, tabs, weights, coords, dim):
-        # coords: (nd_geo, sdim, ne)
         self.dim = dim
         self._tabs, self._weights, self.coords = tabs, weights, coords
         gphi, gdphi = tabs[GEO_FAMILY]
-        if coords.shape[1] != dim:
-            raise NotImplementedError("embedded-manifold geometry is not "
-                                      "ported")
-        # centre per element before contracting: sum_n dphi = 0, so J is
-        # unchanged while the operands shrink from absolute-coordinate to
-        # element-size scale (with full-f32 matmuls, set in the package
-        # __init__, this keeps determinants sign-accurate on fine meshes)
-        cmean = coords.mean(dim=0, keepdim=True)
-        J = torch.einsum("qnd,nxe->qdxe", gdphi, coords - cmean)
         self.x = torch.einsum("qn,nxe->qxe", gphi, coords)  # (nq, sdim, ne)
         self._phi = {f: t[0] for f, t in tabs.items()}
-        detJ, invJ = _det_inv_batched(J)                   # invJ[q, x, d, e]
-        self.wdet = weights[:, None] * detJ.abs()          # (nq, ne)
-        self._dphi = {f: torch.einsum("qnd,qxde->qnxe", t[1], invJ)
+        self.wdet, M = _element_geometry(gdphi, weights, coords)  # (nq, ne)
+        self._dphi = {f: torch.einsum("qnd,qdxe->qnxe", t[1], M)
                       for f, t in tabs.items()}
 
     def moved(self, disp_nodes: torch.Tensor) -> "ElemOpsBatched":
@@ -110,12 +133,30 @@ class ElemOpsBatched:
         return ElemOpsBatched(self._tabs, self._weights,
                               self.coords + disp_nodes, self.dim)
 
+    # ---- raw tabulations (metric-based surface forms) --------------------
+    @property
+    def qweights(self) -> torch.Tensor:
+        """Raw quadrature weights (no geometric Jacobian): (nq,)."""
+        return self._weights
+
+    def phi(self, fam: str) -> torch.Tensor:
+        """Shape functions at the quadrature points: (nq, nd)."""
+        return self._phi[fam]
+
+    def dphi(self, fam: str) -> torch.Tensor:
+        """Physical gradients: (nq, nd, sdim, ne)."""
+        return self._dphi[fam]
+
+    def dphi_ref(self, fam: str) -> torch.Tensor:
+        """Reference-frame derivatives d(phi)/d(xi): (nq, nd, dim)."""
+        return self._tabs[fam][1]
+
     def value(self, fam: str, u: torch.Tensor) -> torch.Tensor:
         """u: (nd, ne) -> (nq, ne)."""
         return torch.einsum("qn,ne->qe", self._phi[fam], u)
 
     def grad(self, fam: str, u: torch.Tensor) -> torch.Tensor:
-        """u: (nd, ne) -> (nq, dim, ne)."""
+        """u: (nd, ne) -> (nq, sdim, ne)."""
         return torch.einsum("qnxe,ne->qxe", self._dphi[fam], u)
 
     def pointwise(self, fn: Callable) -> torch.Tensor:
@@ -131,13 +172,80 @@ class ElemOpsBatched:
         return torch.einsum("qn,qe->ne", self._phi[fam], self.wdet * s)
 
     def tgrad(self, fam: str, v: torch.Tensor) -> torch.Tensor:
-        """v: (nq, dim, ne) -> (nd, ne)."""
+        """v: (nq, sdim, ne) -> (nd, ne)."""
         return torch.einsum("qnxe,qxe->ne", self._dphi[fam],
                             v * self.wdet[:, None])
 
     def tgrad_d(self, fam: str, s: torch.Tensor, d: int) -> torch.Tensor:
         return torch.einsum("qne,qe->ne", self._dphi[fam][:, :, d],
                             s * self.wdet)
+
+
+class ElemOps:
+    """Quadrature operations of ONE element: the batch-first layout, built
+    inside ``torch.func.vmap`` over the elements, for forms written against
+    per-element semantics (``fn.layout = "batch_first"``, e.g. an energy
+    differentiated per element).  Scalars at quadrature points are (nq,),
+    element-local dof vectors (nd,), ``coords`` (nd_geo, sdim) and ``x``
+    (nq, sdim); the same method surface as :class:`ElemOpsBatched`."""
+
+    def __init__(self, tabs, weights, coords, dim):
+        self.dim = dim
+        self._tabs, self._weights, self.coords = tabs, weights, coords
+        gphi, gdphi = tabs[GEO_FAMILY]
+        self.x = gphi @ coords                             # (nq, sdim)
+        self._phi = {f: t[0] for f, t in tabs.items()}
+        self.wdet, M = _element_geometry(gdphi, weights, coords)  # (nq,)
+        self._dphi = {f: torch.einsum("qnd,qdx->qnx", t[1], M)
+                      for f, t in tabs.items()}
+
+    def moved(self, disp_nodes: torch.Tensor) -> "ElemOps":
+        """The operations on the configuration displaced by ``disp_nodes``
+        (nd_geo, dim), rebuilt inside the differentiated function."""
+        return ElemOps(self._tabs, self._weights, self.coords + disp_nodes,
+                       self.dim)
+
+    @property
+    def qweights(self) -> torch.Tensor:
+        """Raw quadrature weights (no geometric Jacobian): (nq,)."""
+        return self._weights
+
+    def phi(self, fam: str) -> torch.Tensor:
+        """Shape functions at the quadrature points: (nq, nd)."""
+        return self._phi[fam]
+
+    def dphi(self, fam: str) -> torch.Tensor:
+        """Physical gradients: (nq, nd, sdim)."""
+        return self._dphi[fam]
+
+    def dphi_ref(self, fam: str) -> torch.Tensor:
+        """Reference-frame derivatives d(phi)/d(xi): (nq, nd, dim)."""
+        return self._tabs[fam][1]
+
+    def value(self, fam: str, u: torch.Tensor) -> torch.Tensor:
+        """u: (nd,) -> (nq,)."""
+        return self._phi[fam] @ u
+
+    def grad(self, fam: str, u: torch.Tensor) -> torch.Tensor:
+        """u: (nd,) -> (nq, sdim)."""
+        return torch.einsum("qnx,n->qx", self._dphi[fam], u)
+
+    def pointwise(self, fn: Callable) -> torch.Tensor:
+        """``fn`` on this element's (nq, sdim) quadrature points."""
+        return fn(self.x)
+
+    def t(self, fam: str, s: torch.Tensor) -> torch.Tensor:
+        """integral s * phi_i   (s: (nq,)) -> (nd,)."""
+        return self._phi[fam].T @ (self.wdet * s)
+
+    def tgrad(self, fam: str, v: torch.Tensor) -> torch.Tensor:
+        """integral v . grad phi_i   (v: (nq, sdim)) -> (nd,)."""
+        return torch.einsum("qnx,qx,q->n", self._dphi[fam], v, self.wdet)
+
+    def tgrad_d(self, fam: str, s: torch.Tensor, d: int) -> torch.Tensor:
+        """integral s * d(phi_i)/dx_d   (s: (nq,)) -> (nd,)."""
+        return torch.einsum("qn,q,q->n", self._dphi[fam][:, :, d], s,
+                            self.wdet)
 
 
 def _face_geometry(gdphi, weights, coords, dim):
@@ -610,13 +718,56 @@ class Assembler:
         })
         return t
 
+    def _layout(self, layout: str = "element_last") -> str:
+        """The assembly layout: the volume form's own ``layout`` attribute
+        (``"batch_first"`` for forms written per element), else ``layout``
+        (only :meth:`make_assemble_fn` passes one)."""
+        layout = getattr(self.volume_form, "layout", layout)
+        if layout not in ("element_last", "batch_first"):
+            raise ValueError(f"layout {layout!r}")
+        return layout
+
+    def _elem_residual(self, tabs, qweights, aux_scalars, ul, cl, grp,
+                       *aux_vals):
+        """One element's residual (ndt,) through :class:`ElemOps`: the
+        batch-first layout's function, mapped over the elements by
+        ``torch.func.vmap``."""
+        aux = dict(aux_scalars)
+        aux.update(zip([n for n, _ in self.aux_field_specs], aux_vals))
+        aux["group"] = grp
+        out = self.volume_form(ElemOps(tabs, qweights, cl, self.dim),
+                               self._split(ul), aux)
+        parts = []
+        for un in self.unknowns:
+            r = out.get(un.name)
+            if r is None:          # forms may omit rows (zeros)
+                sl = self.local_slices[un.name]
+                r = ul.new_zeros(sl.stop - sl.start)
+            parts.append(r)
+        return torch.cat(parts)
+
+    def _batch_first_args(self, tables, aux_scalars, aux_fields):
+        """(one, element arguments after the dofs): ``one(u_loc[e],
+        *(a[e] for a in args))`` is element e's residual."""
+        one = functools.partial(self._elem_residual, tables["tabs"],
+                                tables["qweights"], aux_scalars or {})
+        args = (tables["coords_e"], tables["elem_group"]) + tuple(
+            aux_fields[name][tables["aux_conn"][name]]
+            for name, _ in self.aux_field_specs)
+        return one, args
+
     def _element_fn(self, tables, aux_scalars=None,
                     aux_fields=None) -> Callable:
         """``all_elems(ulT (ndt, ne)) -> (ndt, ne)``: the volume form over
         all elements at once, element-local dofs in, element residuals
         out.  ``aux_fields`` (name -> global dof vector of the field's
         family, one per ``add_aux_field``) reach the form as element-local
-        ``aux[name]`` (nd, ne), beside the scalars and ``aux['group']``."""
+        ``aux[name]`` ((nd, ne) element-last, (nd,) batch-first), beside
+        the scalars and ``aux['group']``."""
+        if self._layout() == "batch_first":
+            one, args = self._batch_first_args(tables, aux_scalars,
+                                               aux_fields)
+            return lambda ulT: torch.func.vmap(one)(ulT.T, *args).T
         aux = dict(aux_scalars or {})
         for name, _ in self.aux_field_specs:
             aux[name] = aux_fields[name][tables["aux_conn"][name]].T
@@ -648,12 +799,35 @@ class Assembler:
                       with_jacobian: bool = True, aux_fields=None):
         """Element residuals ``rT (ndt, ne)`` of the volume form at ``u``
         and, with ``with_jacobian``, their Jacobians ``jacT (ndt_j, ndt_i,
-        ne)`` (else None): the forward derivative of all element residuals
-        along the ``ndt`` unit tangents (``torch.func.jvp`` under ``vmap``;
-        exact, because element residuals are local).  Every matrix layout
-        (ELL, patch stencil, lattice stencil, diagonal) scatters these."""
-        all_elems = self._element_fn(tables, aux_scalars, aux_fields)
+        ne)`` (else None), in the form's layout (:meth:`_layout`).  Every
+        matrix layout (ELL, patch stencil, lattice stencil, diagonal)
+        scatters these."""
+        terms = (self._batch_first_terms if self._layout() == "batch_first"
+                 else self._element_last_terms)
+        return terms(u, tables, aux_scalars, with_jacobian, aux_fields)
+
+    def _batch_first_terms(self, u, tables, aux_scalars, with_jacobian,
+                           aux_fields):
+        """:meth:`element_terms` batch-first: ``vmap`` over the elements
+        of ``jacfwd`` of one element's residual."""
         u = u.to(device=self.device, dtype=self.dtype)
+        one, args = self._batch_first_args(tables, aux_scalars, aux_fields)
+        u_loc = u[tables["edofs"]]                       # (ne, ndt)
+        if not with_jacobian:
+            return torch.func.vmap(one)(u_loc, *args).T, None
+        # one pass: the residual rides along as jacfwd's aux
+        jac, r = torch.func.vmap(torch.func.jacfwd(
+            lambda *a: (one(*a),) * 2, has_aux=True))(u_loc, *args)
+        return r.T, jac.permute(2, 1, 0)
+
+    def _element_last_terms(self, u, tables, aux_scalars, with_jacobian,
+                            aux_fields):
+        """:meth:`element_terms` element-last: the forward derivative of
+        all element residuals along the ``ndt`` unit tangents
+        (``torch.func.jvp`` under ``vmap``; exact, because element
+        residuals are local)."""
+        u = u.to(device=self.device, dtype=self.dtype)
+        all_elems = self._element_fn(tables, aux_scalars, aux_fields)
         u_locT = u[tables["edofs"]].T                    # (ndt, ne)
         rT = all_elems(u_locT)
         if not with_jacobian:
@@ -665,7 +839,8 @@ class Assembler:
         return rT, jacT
 
     def make_assemble_fn(self, with_jacobian: bool = True,
-                         pass_tables: bool = False):
+                         pass_tables: bool = False,
+                         layout: str = "element_last"):
         """Assembly function.
 
         pass_tables=False: (u, aux_scalars, aux_fields) -> (R, data) with
@@ -675,14 +850,18 @@ class Assembler:
         the element-local ``aux_fields`` (see :meth:`_element_fn`) reach
         the form's ``aux`` dict.
 
-        Element residuals and Jacobians come from :meth:`element_terms`;
-        the Jacobian lands in ELL ``data (n_rows, width)`` or, with a patch
+        Element residuals and Jacobians come from :meth:`element_terms`
+        in ``layout`` (a form's own ``layout`` attribute wins); the
+        Jacobian lands in ELL ``data (n_rows, width)`` or, with a patch
         layout, in the flat patch-stencil weights."""
         const_tables = None if pass_tables else self.device_tables()
+        terms = (self._batch_first_terms
+                 if self._layout(layout) == "batch_first"
+                 else self._element_last_terms)
 
         def assemble_t(u, tables, aux_scalars=None, aux_fields=None):
-            rT, jacT = self.element_terms(u, tables, aux_scalars,
-                                          with_jacobian, aux_fields)
+            rT, jacT = terms(u, tables, aux_scalars, with_jacobian,
+                             aux_fields)
             R = self._scatter_rows(tables, rT)
             data = None
             if with_jacobian:
@@ -720,8 +899,8 @@ class Assembler:
     def make_diag_fn(self):
         """(u, tables, aux_scalars=None, aux_fields=None) -> the Jacobian
         DIAGONAL ``(n_dofs,)`` without global matrix data: the smoother
-        scaling of the matrix-free operator path.  Dirichlet rows get
-        exactly 1."""
+        scaling of the matrix-free operator path, in the form's layout.
+        Dirichlet rows get exactly 1."""
 
         def diag_t(u, tables, aux_scalars=None, aux_fields=None):
             _, jacT = self.element_terms(u, tables, aux_scalars,
@@ -741,7 +920,8 @@ class Assembler:
         residuals of a face form, are linearised once
         (``torch.func.linearize``, element- and face-local, so neither the
         gathers nor the ``index_add_`` scatters are differentiated); each
-        ``jv`` is gather -> linear maps -> scatter."""
+        ``jv`` is gather -> linear maps -> scatter.  A batch-first form
+        (:meth:`_layout`) is linearised through its per-element ``vmap``."""
 
         def lin_t(u, tables, aux_scalars=None, aux_fields=None):
             all_elems = self._element_fn(tables, aux_scalars, aux_fields)
@@ -776,6 +956,12 @@ class Assembler:
                 u[dofs])
             out.append((dofs, rf, fjvp))
         return out
+
+    def new_op(self) -> SparseOp:
+        """A zero ELL operator on this level's pattern (device, dtype)."""
+        return op_from_pattern(self.pattern, torch.zeros(
+            (self.pattern.n_rows, self.pattern.width), dtype=self.dtype,
+            device=self.device))
 
     def op_with(self, data: torch.Tensor, cols: torch.Tensor = None):
         """Wrap assembled data as a device operator: ELL data -> SparseOp

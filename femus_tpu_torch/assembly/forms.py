@@ -1,6 +1,7 @@
-"""Ready-made weak forms (Poisson, mass, nonlinear diffusion, steady
-Navier–Stokes, elasticity) and boundary-face forms (Neumann fluxes,
-Nitsche's weak Dirichlet condition).
+"""Ready-made weak forms (Poisson, mass, nonlinear diffusion, the coupled
+biharmonic, steady Navier–Stokes, Boussinesq, elasticity, Willmore flow of
+a graph) and boundary-face forms (Neumann fluxes, Nitsche's weak Dirichlet
+condition).
 
 Each form is a pure function ``form(ops, u, aux) -> {var: residual}`` over
 :class:`~femus_tpu_torch.assembly.engine.ElemOpsBatched`; Jacobians come
@@ -11,6 +12,7 @@ u <- u + delta with J delta = -R.
 """
 from __future__ import annotations
 
+import math
 from typing import Callable, Dict, Optional, Sequence
 
 import torch
@@ -60,6 +62,26 @@ def nonlinear_diffusion(var: str = "u", family: str = "biquadratic",
     return form
 
 
+def biharmonic_coupled(u_var: str = "u", v_var: str = "v",
+                       family: str = "biquadratic",
+                       rhs: Optional[Callable] = None):
+    """Biharmonic lap(lap u) = f as the coupled second-order system
+    v = -lap u, -lap v = f (reference 01_biharmonic_coupled.hpp; tutorial
+    ex04/ex05), simply-supported BCs u = v = 0."""
+
+    def form(ops, u, aux):
+        gu = ops.grad(family, u[u_var])
+        gv = ops.grad(family, u[v_var])
+        vq = ops.value(family, u[v_var])
+        ru = ops.tgrad(family, gu) - ops.t(family, vq)
+        rv = ops.tgrad(family, gv)
+        if rhs is not None:
+            rv = rv - ops.t(family, ops.pointwise(rhs))
+        return {u_var: ru, v_var: rv}
+
+    return form
+
+
 def navier_stokes(vel=("u", "v"), pres: str = "p",
                   vel_family: str = "biquadratic", pres_family: str = "linear",
                   nu: float = 1.0, force: Optional[Callable] = None,
@@ -89,6 +111,43 @@ def navier_stokes(vel=("u", "v"), pres: str = "p",
             out[c] = r
         divV = sum(G[d][:, d] for d in range(dim))
         out[pres] = -ops.t(pres_family, divV)
+        return out
+
+    return form
+
+
+def boussinesq(vel=("u", "v"), pres: str = "p", temp: str = "T",
+               vel_family: str = "biquadratic", pres_family: str = "linear",
+               temp_family: str = "biquadratic",
+               nu: float = 1.0, alpha: float = 1.0, ra: float = 1.0,
+               pr: float = 1.0, gravity_dir: int = -1):
+    """Thermally coupled Navier-Stokes (reference 04_boussinesq.hpp):
+    viscosity sqrt(Pr/Ra), buoyancy T in the gravity direction (the last
+    axis by default), temperature advection-diffusion with conductivity
+    1/sqrt(Ra Pr)."""
+    dim = len(vel)
+    gd = dim - 1 if gravity_dir == -1 else gravity_dir
+
+    def form(ops, u, aux):
+        V = [ops.value(vel_family, u[c]) for c in vel]
+        G = [ops.grad(vel_family, u[c]) for c in vel]
+        pq = ops.value(pres_family, u[pres])
+        Tq = ops.value(temp_family, u[temp])
+        GT = ops.grad(temp_family, u[temp])
+        out = {}
+        for d, c in enumerate(vel):
+            adv = sum(V[e] * G[d][:, e] for e in range(dim))
+            r = (math.sqrt(pr / ra) * ops.tgrad(vel_family, G[d])
+                 + ops.t(vel_family, adv)
+                 - ops.tgrad_d(vel_family, pq, d))
+            if d == gd:
+                r = r - ops.t(vel_family, Tq)
+            out[c] = r
+        divV = sum(G[d][:, d] for d in range(dim))
+        out[pres] = -ops.t(pres_family, divV)
+        advT = sum(V[e] * GT[:, e] for e in range(dim))
+        out[temp] = (1.0 / math.sqrt(ra * pr) * ops.tgrad(temp_family, GT)
+                     + ops.t(temp_family, advT))
         return out
 
     return form
@@ -178,6 +237,36 @@ def elasticity(disp=("dx", "dy"), family: str = "biquadratic",
                     pres_family, u[pres]) / lam_
             out[pres] = -ops.t(pres_family, cres)
         return out
+
+    return form
+
+
+def willmore_graph(u_var: str = "u", w_var: str = "W",
+                   family: str = "biquadratic", c: float = 0.0):
+    """Willmore flow of a graph z = u(x, y), coupled second-order system
+    (reference applications/Willmore/WillmoreGraph/ex2/ex2.cpp:485-522):
+
+      A^2 = 1 + |grad u|^2,  B = I - grad(u) grad(u)^T / A^2
+      W-eq:  (2 W / A) phi + (grad u / A) . grad phi = 0      (W = curvature)
+      u-eq:  (1/A) [ B grad W - (W^2/A^2 + c) grad u ] . grad phi = 0
+
+    Exact steady solution: any sphere cap u = sqrt(R^2 - r^2) with
+    W = -1/u (spheres are Willmore surfaces)."""
+
+    def form(ops, u, aux):
+        Gu = ops.grad(family, u[u_var])                   # (nq, dim[, ne])
+        Wq = ops.value(family, u[w_var])
+        GW = ops.grad(family, u[w_var])
+        A2 = 1.0 + tensors.vdot(Gu, Gu)
+        A = torch.sqrt(A2)
+        # B gradW = gradW - (gradu . gradW) gradu / A^2
+        BgW = GW - tensors.qp(tensors.vdot(Gu, GW) / A2) * Gu
+        flux_u = (BgW - tensors.qp(Wq * Wq / A2 + c) * Gu) / tensors.qp(A)
+        return {
+            w_var: (ops.t(family, -2.0 * Wq / A)
+                    - ops.tgrad(family, Gu / tensors.qp(A))),
+            u_var: ops.tgrad(family, flux_u),
+        }
 
     return form
 

@@ -16,7 +16,7 @@ import torch
 from .. import resolve_device
 from ..fe.geom import GEOMS
 from ..fe.tabulate import tabulate
-from .engine import GEO_FAMILY
+from .engine import GEO_FAMILY, _element_geometry
 
 
 def _geometry(mesh, quad_order, dtype, device):
@@ -43,18 +43,12 @@ def _setup(mesh, family, quad_order, dtype, device):
 
 
 def _metric(gdphi, w, coords_e):
-    """(wdet (ne, nq), invJT (ne, nq, d, x)): quadrature weights times the
+    """(wdet (ne, nq), invJT (ne, nq, d, x)): the assembly engine's element
+    geometry with the element axis first — quadrature weights times the
     volume (or embedded-manifold area) element, and the map taking
     reference derivatives to physical (tangential) gradients."""
-    J = torch.einsum("qnd,enx->eqdx", gdphi, coords_e)
-    if coords_e.shape[-1] == J.shape[2]:
-        wdet = w * torch.linalg.det(J).abs()
-        return wdet, torch.linalg.inv(J).transpose(-1, -2)
-    # embedded manifold: area element + tangential gradients
-    G = torch.einsum("kqdx,kqex->kqde", J, J)
-    wdet = w * torch.sqrt(torch.linalg.det(G))
-    return wdet, torch.einsum("kqde,kqex->kqdx", torch.linalg.inv(G),
-                              J)
+    wdet, M = _element_geometry(gdphi, w, coords_e.permute(1, 2, 0))
+    return wdet.T, M.permute(3, 0, 1, 2)
 
 
 def _wdet(gdphi, w, coords_e):

@@ -9,6 +9,7 @@ elements are produced by one einsum and de-duplicated with ``np.unique``.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Sequence, Tuple
 
 import numpy as np
@@ -119,3 +120,16 @@ def box(ns: Sequence[int],
 
 def unit_box(ns: Sequence[int], geom: str = None) -> Mesh:
     return box(ns, [(0.0, 1.0)] * len(ns), geom)
+
+
+def map_to_surface(mesh: Mesh, fn) -> Mesh:
+    """Embed a 2-D (or 1-D) parameter-domain mesh as a manifold in 3-D:
+    replaces coordinates with ``fn(coords) -> (n, 3)``.  The topological
+    dimension stays ``mesh.dim``; the assembly engine detects the rectangular
+    geometric Jacobian and integrates with the first fundamental form
+    (surface FE — the reference's Willmore-surface / Conformal apps run on
+    such ``*3D.neu`` meshes)."""
+    new_coords = np.asarray(fn(mesh.coords), np.float64)
+    m = dataclasses.replace(mesh, coords=new_coords, _dofmaps={})
+    m.boundary = mesh.boundary
+    return m

@@ -92,6 +92,44 @@ class Mesh:
         return float(np.linalg.norm(c.max(axis=1) - c.min(axis=1), axis=1).mean())
 
 
+# orientation-reversing node permutation per geometry (mirror): applied to
+# elements whose geometric map has negative Jacobian. Derived from the node
+# role layout in fe/geom.py (corners, edge mids, face centers, body center).
+_FLIP = {
+    "edge": [1, 0, 2],
+    "tri": [0, 2, 1, 5, 4, 3, 6],
+    "quad": [0, 3, 2, 1, 7, 6, 5, 4, 8],
+    "tet": [0, 2, 1, 3, 6, 5, 4, 7, 9, 8],
+    "wedge": [0, 2, 1, 3, 5, 4, 8, 7, 6, 11, 10, 9, 12, 14, 13, 17, 16, 15],
+    # hex: swap corners 1<->3 (reflect across x=y); faces ordered
+    # bottom,top,front,right,back,left
+    "hex": [0, 3, 2, 1, 4, 7, 6, 5, 11, 10, 9, 8, 15, 14, 13, 12,
+            16, 19, 18, 17, 20, 21, 25, 24, 23, 22, 26],
+}
+
+
+def fix_orientation(geom: str, conn: np.ndarray, coords: np.ndarray) -> np.ndarray:
+    """Flip elements with negative corner-Jacobian so all geometric maps are
+    positively oriented (mesh generators — e.g. SALOME .med — emit mixed or
+    clockwise orientations; the reference tolerates them via |detJ|, we
+    normalize at read time instead)."""
+    g = GEOMS[geom]
+    dim = g.ref_nodes.shape[1]
+    if coords.shape[1] != dim:
+        return conn                        # surface mesh: no signed volume
+    from ..fe.basis import get_basis
+    b = get_basis(geom, "linear")
+    center = g.ref_nodes.mean(axis=0, keepdims=True)
+    dphi = np.asarray(b.eval_grad(center))[0]              # (n_verts, dim)
+    c = coords[conn[:, :g.n_verts]]        # corners come first in our layout
+    J = np.einsum("nd,enx->edx", dphi, c)
+    neg = np.linalg.det(J) < 0
+    if np.any(neg):
+        conn = conn.copy()
+        conn[neg] = conn[neg][:, np.array(_FLIP[geom][:conn.shape[1]], int)]
+    return conn
+
+
 def _face_corner_key(conn_row: np.ndarray, verts: Tuple[int, ...]) -> Tuple[int, ...]:
     return tuple(sorted(int(conn_row[v]) for v in verts))
 
@@ -157,3 +195,16 @@ def build_boundary_faces(mesh: Mesh, group_fn=None) -> None:
             group=np.array([t[2] for t in items], np.int32),
             conn=np.stack([t[3] for t in items]).astype(np.int32),
         )
+
+
+def boundary_node_groups(mesh: Mesh) -> Dict[int, np.ndarray]:
+    """group label -> array of node ids lying on faces of that group.
+
+    A node on several groups appears in each; BC generation resolves priority
+    (Dirichlet wins) like the reference's min-combine of Bdc codes
+    (NumericVector::closeWithMinValues, MultiLevelSolution.cpp:725-835)."""
+    out: Dict[int, set] = {}
+    for bf in mesh.boundary.values():
+        for k in range(len(bf.elem)):
+            out.setdefault(int(bf.group[k]), set()).update(bf.conn[k].tolist())
+    return {grp: np.array(sorted(s), np.int32) for grp, s in out.items()}

@@ -20,8 +20,8 @@ import scipy.sparse as sp
 import torch
 
 from .. import default_dtype, resolve_device
-from ..algebra.bell import bell_backed
-from ..algebra.krylov import cg
+from ..algebra.bell import on_bell_frame
+from ..algebra.krylov import cg, jacobi_cg
 from ..algebra.mg import build_hierarchy_from_ops
 from ..algebra.sparse import op_from_pattern
 from ..algebra.transfer import (block_diag_prolongation, build_ptap_schedule,
@@ -33,7 +33,6 @@ from ..fe.geom import GEOMS
 from ..fe.quadrature import gauss
 from ..mesh.amr import flag_by_error, hanging_constraints, refine_selective
 from ..mesh.mesh import Mesh
-from .system import BELL_MIN_ROWS, bell_device_plan
 
 
 # ---------------------------------------------------------------------------
@@ -138,22 +137,6 @@ class AMRResult:
     info: Dict
 
 
-def _on_frame(op, pattern, device, routing: Optional[list] = None):
-    """``op`` with its matvec on the sliced-ELL operator of the BELL frame
-    (kernel B1) from BELL_MIN_ROWS rows, else ``op`` itself; the decision
-    is appended to ``routing``."""
-    if pattern.n_rows < BELL_MIN_ROWS:
-        note = {"n_rows": pattern.n_rows, "path": "ell",
-                "reason": f"below bell threshold ({BELL_MIN_ROWS} rows)"}
-    else:
-        dev, note = bell_device_plan(pattern, "identity", device)
-        note = {"n_rows": pattern.n_rows, **note}
-        op = bell_backed(dev, op)
-    if routing is not None:
-        routing.append(note)
-    return op
-
-
 def _constraints(mesh, unknowns):
     """Block-diagonal constraint operator over the unknowns and the stacked
     free-dof index."""
@@ -218,10 +201,8 @@ def solve_conforming(mesh: Mesh, unknowns: Sequence[Unknown],
     R, data = asm.make_assemble_fn()(u0)
     routing: List[dict] = []
     if n_hang == 0:
-        A = _on_frame(asm.op_with(data), asm.pattern, device, routing)
-        d = A.diagonal()
-        delta, si = cg(A.matvec, -R, M=lambda r: r / d, tol=tol,
-                       maxiter=maxiter)
+        A = on_bell_frame(asm.op_with(data), asm.pattern, device, routing)
+        delta, si = jacobi_cg(A, -R, tol=tol, maxiter=maxiter)
         return (u0 + delta).cpu().numpy(), {
             "n_hanging": 0, "iterations": si.iters,
             "residual": si.residual, "routing": routing}
@@ -230,14 +211,11 @@ def solve_conforming(mesh: Mesh, unknowns: Sequence[Unknown],
     sched = build_ptap_schedule(asm.pattern, C, dtype=dtype, device=device)
     mask_f = np.asarray(asm.dirichlet_mask)[free_idx]
     cpat = sched.coarse_pattern
-    Ar = _on_frame(op_from_pattern(cpat, _restore_dirichlet(
+    Ar = on_bell_frame(op_from_pattern(cpat, _restore_dirichlet(
         sched.apply(data), cpat, mask_f)), cpat, device, routing)
     mask_t = torch.as_tensor(mask_f, device=device)
     Rr = torch.where(mask_t, 0.0, CTop @ R)
-    d = Ar.diagonal()
-    d = torch.where(d.abs() > 1e-300, d, 1.0)
-    delta_f, si = cg(Ar.matvec, -Rr, M=lambda r: r / d, tol=tol,
-                     maxiter=maxiter)
+    delta_f, si = jacobi_cg(Ar, -Rr, tol=tol, maxiter=maxiter)
     # prolong: full-space solution (hanging dofs interpolated); u0 carries
     # the Dirichlet values, delta the free-space correction
     return (u0 + Cop @ delta_f).cpu().numpy(), {
@@ -346,7 +324,7 @@ def solve_mg_amr(meshes, unknowns, volume_form, bc_fn, quad_order="fifth",
         u0 = _start(asm, C, free_idx, dtype, device)
         A_r, R_r, Cop = _reduced_op(asm, C, free_idx, mask_f, sched, u0)
         if li > 0:
-            A_r = _on_frame(A_r, sched.coarse_pattern, device, routing)
+            A_r = on_bell_frame(A_r, sched.coarse_pattern, device, routing)
         ops.append(A_r)
         if li == len(levels) - 1:
             rhs, Cop_f, u0_f = R_r, Cop, u0

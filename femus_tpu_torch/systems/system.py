@@ -18,7 +18,8 @@ import scipy.sparse as sp
 import torch
 
 from .. import default_dtype, resolve_device
-from ..algebra.bell import bell_backed, build_bell_plan, spmv_bell_cuda
+from ..algebra.bell import (BELL_MIN_ROWS, bell_backed, bell_device_plan,
+                             spmv_bell_cuda)
 from ..algebra.dia import spmv_dia_cuda
 from ..algebra.krylov import cg, fgmres, gmres
 from ..algebra.mg import (build_hierarchy, build_hierarchy_from_ops,
@@ -37,33 +38,9 @@ KERNELS = {"bell_spmv": spmv_bell_cuda, "patch_stencil": spmv_patch_cuda,
            "dia_spmv": spmv_dia_cuda, "stencil_spmv": spmv_stencil_cuda}
 
 
-# rows from which an operator's matvec runs on the sliced-ELL operator of
-# the BELL frame (kernel B1); below, the ELL gather is already cheap
-BELL_MIN_ROWS = 2048
-
-
 def launch_counts() -> Dict[str, int]:
     """Launches of every kernel so far, by kernel name."""
     return {name: fn.launches for name, fn in KERNELS.items()}
-
-
-def bell_device_plan(pattern, order: str = "identity", device="cuda"):
-    """(device plan, routing note) of an operator pattern: the sliced-ELL
-    layout in the BELL frame, identity (``order="identity"``, rebuilt with
-    RCM when the identity slab would exceed 24 B per nonzero) or RCM."""
-    plan = build_bell_plan(pattern,
-                           perm="identity" if order == "identity" else None)
-    note = {"order": order}
-    if order == "identity" and plan.nnz_bytes_ratio > 24.0:
-        ratio = plan.nnz_bytes_ratio
-        plan = build_bell_plan(pattern)        # RCM rescue
-        note = {"order": "rcm-rescue",
-                "reason": f"identity slab {ratio:.1f} B/nnz > 24.0, "
-                          f"rebuilt with RCM ({plan.nnz_bytes_ratio:.1f})"}
-    sell = plan.sell()
-    note = {"path": "bell", "kernel": "bell_spmv", "sigma": sell.sigma,
-            "fill": round(sell.fill, 4), **note}
-    return sell.to_device(resolve_device(device)), note
 
 
 @dataclasses.dataclass

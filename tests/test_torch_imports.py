@@ -246,3 +246,34 @@ def test_amr_modules_are_covered():
     mods = set(_modules())
     for m in ("mesh.amr", "systems.amr", "algebra.mg", "algebra.sparse"):
         assert f"femus_tpu_torch.{m}" in mods, m
+
+
+def test_slice8_modules_are_covered():
+    """The remaining forms, the materials, surface/conformal, nonlocal and
+    mixed-mesh modules (the port's own copies of the numpy-only
+    materials.py and mesh/mixed.py included) are among those the import
+    checks walk."""
+    mods = set(_modules())
+    for m in ("materials", "assembly.sw", "assembly.conformal",
+              "assembly.nonlocal_diffusion", "assembly.mixed", "mesh.mixed",
+              "mesh.mesh", "mesh.generation"):
+        assert f"femus_tpu_torch.{m}" in mods, m
+
+
+def test_slice8_entry_points_raise_without_cuda(no_cuda):
+    """NonlocalOperator and MixedAssembler run on the card unless asked
+    for the host."""
+    from femus_tpu_torch.assembly.engine import Unknown
+    from femus_tpu_torch.assembly.mixed import MixedAssembler
+    from femus_tpu_torch.assembly.nonlocal_diffusion import NonlocalOperator
+    from femus_tpu_torch.mesh.generation import box
+    from femus_tpu_torch.mesh.mixed import mixed_unit_box
+
+    mesh = box((4,), [(0.0, 1.0)], "edge")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        NonlocalOperator(mesh, delta=0.3)
+    op = NonlocalOperator(mesh, delta=0.3, device="cpu")
+    assert op._data.device.type == "cpu" and op._data.dtype == torch.float64
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        MixedAssembler(mixed_unit_box((2, 2)), [Unknown("u")])
+    MixedAssembler(mixed_unit_box((2, 2)), [Unknown("u")], device="cpu")

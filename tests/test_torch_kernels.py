@@ -529,6 +529,7 @@ def _amr_reduced_operator():
     twice), with the Dirichlet identity restored (host, float64)."""
     from femus_tpu_torch.mesh.amr import refine_selective
     from femus_tpu_torch.systems import amr
+    from femus_tpu_torch.algebra.bell import BELL_MIN_ROWS
 
     mesh = unit_box((24, 24))
     for _ in range(2):
@@ -539,7 +540,7 @@ def _amr_reduced_operator():
         lambda var, x, grp, t: (True, 0.0), device="cpu")
     u0 = amr._start(asm, C, free_idx, torch.float64, torch.device("cpu"))
     A, _, _ = amr._reduced_op(asm, C, free_idx, mask_f, sched, u0)
-    assert C.shape[0] > C.shape[1] and A.n_rows >= amr.BELL_MIN_ROWS
+    assert C.shape[0] > C.shape[1] and A.n_rows >= BELL_MIN_ROWS
     return sched.coarse_pattern, A.data
 
 
@@ -550,7 +551,7 @@ def test_bell_kernel_on_new_callers(cuda, case):
     level) on an AMR reduced operator and on a rediscretized coarse level
     (the middle level of a 12 x 12 -> 48 x 48 Poisson hierarchy, 2,401
     rows), in the plan the solve builds, against its plain version."""
-    from femus_tpu_torch.systems.system import bell_device_plan
+    from femus_tpu_torch.algebra.bell import bell_device_plan
     if case == "amr":
         pattern, data = _amr_reduced_operator()
         dtypes = [(torch.float64, 1e-12)]
@@ -613,3 +614,97 @@ def test_rediscretized_bell_solve_on_card(cuda):
     assert k_c > 0 and k_h == 0
     assert i_c["iters"] == i_h["iters"]
     assert np.abs(u_c - u_h).max() <= 1e-10 * np.abs(u_h).max()
+
+
+def _boussinesq_jacobian():
+    """Boussinesq Jacobian (u, v, T Q2, p P1dc, interleaved: four unknowns
+    per node) at a seeded random state (host)."""
+    from femus_tpu_torch.assembly.forms import boussinesq
+    asm = Assembler(unit_box((8, 8)), [Unknown("u"), Unknown("v"),
+                                       Unknown("p", "disc_linear"),
+                                       Unknown("T")],
+                    interleave=True, device="cpu")
+    asm.set_volume_form(boussinesq(("u", "v"), "p", "T",
+                                   pres_family="disc_linear", ra=1e4,
+                                   pr=0.71))
+    u = np.random.default_rng(5).standard_normal(asm.n_dofs)
+    _, data = asm.make_assemble_fn()(torch.as_tensor(u))
+    return asm.pattern, data
+
+
+def _nonlocal_operator(device):
+    """The nonlocal-64 operator of chip_smoke.py: linear elements on
+    unit_box((64, 64)), delta 0.1, 4,225 rows of up to 357 entries."""
+    from femus_tpu_torch.assembly.nonlocal_diffusion import NonlocalOperator
+    op = NonlocalOperator(unit_box((64, 64)), "linear", delta=0.1,
+                          quad_order=3, device=device, dtype=torch.float64)
+    assert op.pattern.width == 357
+    return op.pattern, op._data
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["boussinesq", "nonlocal"])
+def test_bell_kernel_on_slice8_operators(cuda, case):
+    """B1 on the Boussinesq Jacobian (float32 and bfloat16 values, the
+    cavity solve's types) and on the width-357 nonlocal operator (float64),
+    in the plan a solve builds, against its plain version."""
+    from femus_tpu_torch.algebra.bell import bell_device_plan
+    if case == "boussinesq":
+        pattern, data = _boussinesq_jacobian()
+        dtypes = [(torch.float32, torch.float32, 1e-5),
+                  (torch.bfloat16, torch.float32, 1e-5)]
+    else:
+        pattern, data = _nonlocal_operator(cuda)
+        dtypes = [(torch.float64, torch.float64, 1e-12)]
+    dev, note = bell_device_plan(pattern, "identity", cuda)
+    assert note["path"] == "bell"
+    for val_dtype, x_dtype, rtol in dtypes:
+        op = bell.relayout_ell(dev, data.to(cuda), dtype=val_dtype,
+                               device=cuda)
+        x = torch.as_tensor(np.random.default_rng(4).standard_normal(dev.n),
+                            dtype=x_dtype, device=cuda)
+        n0 = bell.spmv_bell_cuda.launches
+        y = op.matvec_frame(x)
+        torch.cuda.synchronize()
+        assert bell.spmv_bell_cuda.launches == n0 + 1
+        y_ref = bell._matvec_plain_frame(op, x)
+        scale = bell._matvec_plain_frame(_abs_op(op), x.abs()).abs().max()
+        assert float((y - y_ref).abs().max()) <= rtol * float(scale)
+        assert torch.equal(op.matvec_frame(x), y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["laplace_beltrami", "conformal"])
+def test_manifold_assembly_on_card_matches_host(cuda, case):
+    """Surface FE on the card against the host in float64: Laplace-Beltrami
+    on the embedded half cylinder (element-last, first fundamental form)
+    and the conformal energy's gradient and Hessian there (batch-first,
+    vmap of jacfwd over torch.func.grad)."""
+    from femus_tpu_torch.assembly.conformal import conformal_minimization
+    from femus_tpu_torch.mesh.generation import map_to_surface
+
+    def cyl(p):
+        phi = np.pi * p[:, 0]
+        return np.stack([np.cos(phi), np.sin(phi), p[:, 1]], axis=-1)
+
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        mesh = map_to_surface(unit_box((6, 6)), cyl)
+        if case == "laplace_beltrami":
+            a = Assembler(mesh, [Unknown("u")], quad_order="seventh",
+                          dtype=torch.float64, device=dev)
+            a.set_volume_form(poisson("u", rhs=lambda x: x[:, 1] * torch.sin(
+                np.pi * x[:, 2])))
+            generate_bdc(a, lambda var, x, grp, t: (True, 0.0))
+        else:
+            a = Assembler(mesh, [Unknown(n) for n in ("Dx1", "Dx2", "Dx3")],
+                          dtype=torch.float64, device=dev)
+            a.set_volume_form(conformal_minimization())
+        u = torch.as_tensor(0.05 * np.random.default_rng(3).standard_normal(
+            a.n_dofs), device=dev)
+        R, data = a.make_assemble_fn()(u)
+        out[dev.type] = (R.cpu(), data.cpu())
+    for k in range(2):
+        ref = out["cpu"][k]
+        assert float((out["cuda"][k] - ref).abs().max()) <= \
+            1e-12 * float(ref.abs().max())

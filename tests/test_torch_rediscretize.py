@@ -9,7 +9,8 @@ femus_tpu, in float64 on the host.
   stays within bfloat16 rounding of the float64 cycle;
 - ``System`` solves with ``coarse_op="rediscretize"`` and ``operator``
   "assembled" or "bell" (the plain path on the host) on Poisson and on a
-  stacked Navier-Stokes cavity: equal iteration counts, u to 1e-8;
+  stacked Navier-Stokes cavity: equal iteration counts, u to 1e-8 (the
+  cavity with "bell" in test_torch_rediscretize_cavity.py);
 - the refusals: interleaved dofs, the additive Vanka sweep and
   "vanka_gmres" (the reference's rediscretized hierarchy silently runs
   multiplicative Vanka and Chebyshev for these two);
@@ -18,7 +19,6 @@ femus_tpu, in float64 on the host.
   the face terms), held against the reference's matrix-free step;
 - ``build_hierarchy_matfree`` with ``compute_dtype``.
 """
-import importlib
 
 import jax
 import jax.numpy as jnp
@@ -46,25 +46,12 @@ from femus_tpu_torch import convert
 from femus_tpu_torch.mesh.generation import unit_box as tunit_box
 from femus_tpu_torch.mesh.multilevel import MultiLevelMesh as TMLM
 
+from cavity_cases import cavity_bc as _cavity_bc
+from cavity_cases import check_cavity_rediscretized
+from cavity_cases import close as _close
+from cavity_cases import mod as _mod
+
 PI = np.pi
-
-
-def _mod(pkg, name):
-    return importlib.import_module(f"{pkg}.{name}")
-
-
-def _close(got, ref, rtol):
-    ref = np.asarray(ref)
-    np.testing.assert_allclose(np.asarray(got), ref, rtol=0,
-                               atol=rtol * np.abs(ref).max())
-
-
-def _cavity_bc(var, x, grp, t):
-    if var == "p":
-        return (False, 0.0)
-    if var == "u" and abs(x[1] - 1.0) < 1e-9:
-        return (True, 1.0)
-    return (True, 0.0)
 
 
 # ---------------------------------------------------------------------------
@@ -199,7 +186,7 @@ def test_from_ops_bf16_builds_on_float32():
 def test_from_ops_bell_levels_cast_both_layouts():
     """A level on the BELL frame casts its ELL and its sliced-ELL values."""
     from femus_tpu_torch.algebra.bell import BellBackedOp, bell_backed
-    from femus_tpu_torch.systems.system import bell_device_plan
+    from femus_tpu_torch.algebra.bell import bell_device_plan
     a = teng.Assembler(tunit_box((8, 8)), [teng.Unknown("u")], device="cpu")
     a.set_volume_form(tforms.poisson("u"))
     tbc.generate_bdc(a, lambda var, x, grp, t: (True, 0.0))
@@ -286,52 +273,11 @@ def test_poisson_rediscretized_matches_jax(operator, smoother):
         assert set(paths) == {2401, 9409}
 
 
-def _cavity_system(pkg, operator, levels=3):
-    """The lid-driven cavity (Re 100) on unit_box((4, 4)) refined to
-    ``levels`` levels, stacked dofs, rediscretized coarse levels,
-    multiplicative Vanka (2 elements), GMRES(60) to rtol 1e-8, 4 Newton
-    steps from zero."""
-    ml_mesh = _mod(pkg, "mesh.multilevel").MultiLevelMesh(
-        _mod(pkg, "mesh.generation").unit_box((4, 4)), levels)
-    ml_sol = _mod(pkg, "systems.solution").MultiLevelSolution(ml_mesh)
-    ml_sol.add_solution("u", "biquadratic")
-    ml_sol.add_solution("v", "biquadratic")
-    ml_sol.add_solution("p", "disc_linear")
-    for n in "uvp":
-        ml_sol.initialize(n)
-    ml_sol.attach_bc(_cavity_bc)
-    for n in "uvp":
-        ml_sol.generate_bdc(n)
-    ml_sol.fix_solution_at_point("p", 0, 0.0)
-    prob = _mod(pkg, "systems.problem").MultiLevelProblem(
-        ml_mesh, ml_sol, quad_order="fifth")
-    s = prob.add_system(_mod(pkg, "systems.system").NonLinearImplicitSystem,
-                        "NS")
-    s.add_unknown("u", "v", "p")
-    s.set_assembly(_mod(pkg, "assembly.forms").navier_stokes(
-        ("u", "v"), "p", pres_family="disc_linear", nu=0.01))
-    cfg = s.config
-    cfg.operator, cfg.coarse_op, cfg.smoother = operator, "rediscretize", \
-        "vanka"
-    cfg.rtol, cfg.restart, cfg.max_outer = 1e-8, 60, 10
-    cfg.max_nonlinear = 4
-    s.init(**({"device": "cpu"} if pkg == "femus_tpu_torch" else {}))
-    s.solve()
-    return s, ml_sol
-
-
-@pytest.mark.parametrize("operator", ["assembled", "bell"])
+# the "bell" case is in test_torch_rediscretize_cavity.py, so that a
+# parallel run gives the two long cases to two workers
+@pytest.mark.parametrize("operator", ["assembled"])
 def test_cavity_rediscretized_matches_jax(operator):
-    js, jsol = _cavity_system("femus_tpu", operator)
-    ts, tsol = _cavity_system("femus_tpu_torch", operator)
-    assert len(ts.history) == len(js.history) == 4
-    for a, b in zip(ts.history, js.history):
-        assert a["converged"] and a["lin_iters"] == int(b["lin_iters"])
-    for n in "uvp":
-        _close(tsol.sol[-1][n], jsol.sol[-1][n], 1e-8)
-    if operator == "bell":
-        assert any(n.get("path") == "bell" and n["n_rows"] == 2946
-                   for n in ts.solver_info()["routing"])
+    check_cavity_rediscretized(operator)
 
 
 def test_rediscretize_refusals():
