@@ -142,9 +142,10 @@ Slice 5, monolithic ALE fluid-structure interaction on the BELL-frame
 operator (kernel B1), with the Petrov-Galerkin R A P hierarchy and
 material-split Vanka (see ``fsi_system``):
 
-24. fsi_setup     — System.init of fsi-bed-128: unit_box((16,16)) refined
-                    to 4 levels, finest 128x128, dx, dy, u, v Q2 and p P1dc
-                    (313,348 dofs), an elastic bed in the bottom quarter;
+24. fsi_setup     — System.init of fsi-bed-64: unit_box((16,16)) refined
+                    to 3 levels, finest 64x64, dx, dy, u, v Q2 and p P1dc
+                    (78,852 dofs; 4 levels, fsi-bed-128, before slice 9
+                    needed the clock), an elastic bed in the bottom quarter;
                     host seconds, dofs, nnz and row lengths per level,
                     R A P schedule sizes;
 25. fsi_kernel    — B1 on the FSI fine Jacobian at the initial state, in the
@@ -153,7 +154,7 @@ material-split Vanka (see ``fsi_system``):
                     float64 data; cold time, HBM bound, CSR time in the same
                     types, fill;
 26. fsi_main      — NonLinearImplicitSystem.solve in float64 (FSI_DTYPE; F
-                    ratchet over the four levels, K-cycle FGMRES, linear
+                    ratchet over the three levels, K-cycle FGMRES, linear
                     rtol 1e-4, up to 8 Newton steps per level, the pressure
                     pinned in the fluid, nu 0.05, lid 0.2): seconds, FGMRES
                     iterations and ||R(u)|| per step, B1 launches, peak
@@ -258,6 +259,63 @@ NONLOCAL_*):
                     gates: symmetric and A 1 = 0 to rounding, the CG
                     converges, the core shape of tests/test_nonlocal.py.
 
+Slice 9, the mesh readers, Lagrangian markers, explicit MPM and MPM-FSI,
+mesh-to-mesh projection and UQ, after phase 39 (constants NEU_*,
+MARKERS_*, MAGNETIC_COUNT, MPM_*, MPM_FSI_*, PROJ_*, UQ_*):
+
+40. gambit, gambit_kernel — gambit-poisson-256: unit_box((32,32)) Q2 written
+                    as a Gambit .neu file (``write_neu``, four boundary
+                    groups), read back with read_neu, refined to 4 levels
+                    (finest 256x256, 263,169 dofs), Q2 Poisson (sin sin)
+                    with Dirichlet conditions on the read groups, MG-CG on
+                    the BELL operator to 1e-12 in float64 on every depth
+                    (convergence_study); B1 on the finest operator against
+                    its plain version (cold time, bound, CSR); gates: the
+                    read mesh equals the written one (coords, conn, groups,
+                    boundary faces), every solve meets its rtol, L2 order
+                    > 2.7, B1 launched;
+41. markers       — markers-256: 2^20 markers in the disk of radius 0.4 on
+                    unit_box((256,256)): locate on the card, one RK4
+                    revolution through the Q2 rigid rotation in 400 steps;
+                    a 4,096-marker subset located and advected (1/10
+                    revolution) on the host too; ex05's magnetic capture
+                    (a wire at (0.95, 0.5), capped drift) on 10^5 markers;
+                    gates: every marker located before and after, back at
+                    its start to 1e-6, the subset's owners equal and its
+                    positions within 1e-12, the mean distance to the wire
+                    falls;
+42. mpm           — mpm-block-128: the elastic block of tests/test_mpm.py
+                    at 128x128 (``mpm_block``: 23,104 particles, ppc 4,
+                    linear transfer, one cell above the fixed floor), 500
+                    explicit steps of 2.5e-4 under gravity -1; the 8x8 block
+                    50 steps on the card and the host; gates: P2G mass to
+                    1e-13, momentum g t to 1e-10 before contact, the floor
+                    stops the fall (see phase_mpm), det F in (0.5, 2),
+                    card = host to MPM_REF_TOL;
+43. mpm_fsi       — mpm-fsi-sinking-64: ex06 at n = 64 (37,507 dofs, 1,482
+                    material points), 5 implicit steps: assembly with the
+                    particle form, P2G and G2P on the card, scipy spsolve
+                    on the host (seconds apart); n = 6 for 2 steps on the
+                    card and the host; gates: Newton meets newton_tol every
+                    step, the centre of mass falls every step, det F in
+                    (0.8, 1.2), card = host to 1e-8;
+44. projection    — projection-256: projection_matrix from
+                    unit_box((256,256)) Q2 onto unit_box((200,200)) Q2
+                    shifted by (0.1, -0.05) (160,801 points located on the
+                    card); gates: exact on a quadratic to 1e-10 inside, the
+                    rows of points outside empty;
+45. uq, uq_kernel — uq-pce-128: ex07's collocation (-div(e^xi grad u) = 1
+                    at 128x128 Q2, Jacobi-CG to 1e-12 on B1 at each of 7
+                    Hermite nodes) held to the closed form
+                    u0 (-1)^k e^(1/2) / sqrt(k!) within the quadrature's own
+                    error; the PCE tables at 4 dimensions, degree 6 (210
+                    terms); fit_pdf of 10^7 2-D Gaussian samples at levels
+                    5, 6, 7 (769 basis functions); B1 on the collocation
+                    operator against its plain version; gates: CG meets
+                    rtol, coefficients within tolerance, mass matrix = I to
+                    1e-12, triple products symmetric, the sparse grid's L2
+                    error falls from level 5 to 7, B1 launched.
+
 Then the card's name and power limit, the kernel table as one JSON line,
 and the final status line.
 """
@@ -267,8 +325,10 @@ import argparse
 import contextlib
 import functools
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 
@@ -299,9 +359,10 @@ PATCH_ERR_MAX = 2.5e-2
 # and 16-179x (elasticity, up to 300x in other runs); a solve that stopped
 # with no iteration sits at 1e6x
 RESIDUAL_SLACK = {"patch_main": 100.0, "patch_elasticity": 1000.0}
-# fsi-bed-128 (steady) and fsi-bed-transient-64: coarsest cells per side,
+# fsi-bed-64 (steady; fsi-bed-128 at 4 levels before the whole run's
+# clock needed the room) and fsi-bed-transient-64: coarsest cells per side,
 # mesh levels of each; the bed is the elements whose centroid has y < 0.25
-FSI_COARSE, FSI_LEVELS, FSI_TRANSIENT_LEVELS = 16, 4, 3
+FSI_COARSE, FSI_LEVELS, FSI_TRANSIENT_LEVELS = 16, 3, 3
 FSI_FIELDS = ("dx", "dy", "u", "v", "p")
 FSI_BED = 0.25
 # the lid speed and viscosity of the steady case: the JAX package's Newton
@@ -321,7 +382,7 @@ FSI_PIN = -3
 FSI_DTYPE = torch.float64
 # relative Newton correction at which a level's loop stops
 FSI_NONLINEAR_TOL = 1e-5
-# FGMRES(60) restarts per linear solve: the finest fsi-bed-128 level needs
+# FGMRES(60) restarts per linear solve: the finest fsi-bed-128 level needed
 # 800-1,800 iterations for rtol 1e-4
 FSI_MAX_OUTER = 40
 
@@ -384,6 +445,33 @@ FORMS_COARSE, FORMS_LEVELS, WILLMORE_R = 8, 5, 1.2
 SURF_N, CONF_N, MIXED_N = 256, 128, 128
 SW_N, SW_DT, SW_LAKE_STEPS, SW_TRACER_STEPS = 128, 0.01, 5, 40
 NONLOCAL_N, NONLOCAL_DELTA = 64, 0.1
+
+
+# slice 9: gambit-poisson-256 (a unit_box((32,32)) Q2 mesh written as a
+# Gambit .neu file with the groups NEU_GROUPS, read back, NEU_LEVELS levels:
+# finest 256x256, 263,169 dofs); markers-256 (2^20 markers in a disk on
+# unit_box((256,256)), one RK4 revolution in MARKERS_STEPS steps, a host
+# subset of MARKERS_SUBSET; ex05's capture on MAGNETIC_COUNT markers);
+# mpm-block-128 (the explicit block at 128x128, MPM_STEPS steps of MPM_DT
+# under gravity MPM_G; the 8x8 block MPM_REF_STEPS steps on card and host,
+# held to MPM_REF_TOL: the card's atomics reorder the P2G sums, ~1e-15 a
+# step); mpm-fsi-sinking-64 (ex06 at n = 64: 37,507 dofs, MPM_FSI_STEPS
+# implicit steps, up to MPM_FSI_NEWTON Newton iterations each);
+# projection-256 (unit_box((256,256)) Q2 onto unit_box((200,200)) Q2
+# shifted by PROJ_SHIFT); uq-pce-128 (ex07 at 128x128 Q2, UQ_NQ Hermite
+# nodes, PCE degree UQ_DEG; fit_pdf of UQ_SAMPLES samples at UQ_SG_LEVELS:
+# at 10^6 samples the level-7 estimate's sampling error puts its L2 error
+# above level 5's, 0.00373 against 0.00239 in a host float64 run, and at
+# 10^7 below it, 0.00133 against 0.00175)
+NEU_COARSE, NEU_LEVELS, NEU_GROUPS = 32, 4, (1, 2, 3, 4)
+MARKERS_N, MARKERS_COUNT, MARKERS_STEPS = 256, 1 << 20, 400
+MARKERS_SUBSET, MAGNETIC_COUNT = 4096, 100_000
+MPM_N, MPM_STEPS, MPM_DT, MPM_G = 128, 500, 2.5e-4, -1.0
+MPM_REF_STEPS, MPM_REF_TOL = 50, 1e-10
+MPM_FSI_N, MPM_FSI_STEPS, MPM_FSI_NEWTON = 64, 5, 8
+PROJ_SRC, PROJ_DST, PROJ_SHIFT = 256, 200, (0.1, -0.05)
+UQ_N, UQ_NQ, UQ_DEG = 128, 7, 4
+UQ_SAMPLES, UQ_SG_LEVELS = 10 ** 7, (5, 6, 7)
 
 
 # the measured keys of a row of the final kernel table
@@ -1939,10 +2027,12 @@ def phase_fieldsplit() -> dict:
     return rep
 
 
-def poisson_q2_solver(device, dtype):
+def poisson_q2_solver(device, dtype, bc=None, solves=None):
     """make_and_solve for convergence_study: Q2 Poisson -Lap u = 2 pi^2
-    sin(pi x) sin(pi y), homogeneous Dirichlet, operator="bell", MG-CG to
-    rtol 1e-12."""
+    sin(pi x) sin(pi y), homogeneous Dirichlet (on every boundary face, or
+    where ``bc`` says), operator="bell", MG-CG to rtol 1e-12.  With
+    ``solves`` (a list), each solve's system, dofs, iterations, seconds and
+    convergence are appended to it."""
     from femus_tpu_torch.assembly.forms import poisson
     from femus_tpu_torch.systems.problem import MultiLevelProblem
     from femus_tpu_torch.systems.solution import MultiLevelSolution
@@ -1954,7 +2044,7 @@ def poisson_q2_solver(device, dtype):
         ml_sol = MultiLevelSolution(ml_mesh)
         ml_sol.add_solution("u", "biquadratic")
         ml_sol.initialize("u")
-        ml_sol.attach_bc(lambda var, x, grp, t: (True, 0.0))
+        ml_sol.attach_bc(bc or (lambda var, x, grp, t: (True, 0.0)))
         ml_sol.generate_bdc("u")
         prob = MultiLevelProblem(ml_mesh, ml_sol, quad_order="fifth")
         sys_ = prob.add_system(LinearImplicitSystem, "P")
@@ -1967,7 +2057,13 @@ def poisson_q2_solver(device, dtype):
         cfg.outer = "cg"
         cfg.rtol = 1e-12
         sys_.init(device=device, dtype=dtype)
+        t0 = time.perf_counter()
         info = sys_.solve()
+        if solves is not None:
+            solves.append({"system": sys_, "n_dofs": sys_.assemblers[-1].n_dofs,
+                           "iters": info["iters"], "converged":
+                           info["converged"],
+                           "solve_s": time.perf_counter() - t0})
         if not info["converged"]:
             raise AssertionError(f"convergence: a solve missed rtol {info}")
         return ml_sol, {"u": "biquadratic"}
@@ -2199,7 +2295,7 @@ def _fsi_observables(sys_, ml_sol) -> dict:
 
 
 def phase_fsi_main(sys_, ml_sol, setup_s: float) -> dict:
-    """NonLinearImplicitSystem.solve on fsi-bed-128, with the launch
+    """NonLinearImplicitSystem.solve on fsi-bed-64, with the launch
     counts set to 0 just before it and read just after."""
     from femus_tpu_torch.systems.system import launch_counts
 
@@ -3439,6 +3535,609 @@ def run_slice8() -> dict:
     return out
 
 
+def write_neu(mesh, path: str, family: str = "biquadratic",
+              boundary: bool = True) -> None:
+    """Write a single-geometry mesh as a Gambit neutral file (the layout
+    mesh/gambit.py reads): every element's ``family`` nodes (renumbered
+    compactly) in Gambit's node order, one element group per
+    ``elem_group`` label and, with ``boundary``, one boundary-condition
+    set per boundary group."""
+    from femus_tpu_torch.fe.geom import GEOMS
+    from femus_tpu_torch.mesh.gambit import _GTYPE, _MY_FACE_FROM_GAMBIT, _PERMS
+
+    local = GEOMS[mesh.geom].family_nodes[family]
+    used, inv = np.unique(mesh.conn[:, local], return_inverse=True)
+    conn = inv.reshape(mesh.n_elems, len(local)) + 1
+    gconn = np.empty_like(conn)
+    gconn[:, _PERMS[(mesh.geom, len(local))]] = conn
+    gtype = {g: t for t, g in _GTYPE.items()}[mesh.geom]
+    gface = np.argsort(_MY_FACE_FROM_GAMBIT[mesh.geom])     # ours -> Gambit
+    sets = {}
+    if boundary:
+        for bf in mesh.boundary.values():
+            for e, f, g in zip(bf.elem, bf.iface, bf.group):
+                sets.setdefault(int(g), []).append((int(e), int(f)))
+    labels = np.unique(mesh.elem_group)
+    out = ["        CONTROL INFO 2.4.6", "** GAMBIT NEUTRAL FILE",
+           "written by chip_smoke.write_neu", "PROGRAM:  Gambit  VERSION:  2.4.6",
+           "", "     NUMNP     NELEM     NGRPS    NBSETS     NDFCD     NDFVL",
+           f"{len(used):10d}{mesh.n_elems:10d}{len(labels):10d}"
+           f"{len(sets):10d}{mesh.dim:10d}{mesh.dim:10d}", "ENDOFSECTION",
+           "   NODAL COORDINATES 2.4.6"]
+    out += [f"{k + 1:10d} " + " ".join(f"{v:.17e}" for v in xyz)
+            for k, xyz in enumerate(mesh.coords[used])]
+    out += ["ENDOFSECTION", "      ELEMENTS/CELLS 2.4.6"]
+    for e, row in enumerate(gconn):
+        out.append(f"{e + 1:8d} {gtype:2d} {len(row):2d} "
+                   + " ".join(str(v) for v in row[:7]))
+        out += [" " * 15 + " ".join(str(v) for v in row[k:k + 7])
+                for k in range(7, len(row), 7)]
+    out.append("ENDOFSECTION")
+    for gi, lab in enumerate(labels):
+        ids = np.nonzero(mesh.elem_group == lab)[0] + 1
+        out += ["       ELEMENT GROUP 2.4.6",
+                f"GROUP: {gi + 1:10d} ELEMENTS: {len(ids):10d} MATERIAL: "
+                f"{2:10d} NFLAGS: {1:10d}", f"{int(lab):32d}", "       0"]
+        out += [" ".join(f"{v:7d}" for v in ids[k:k + 10])
+                for k in range(0, len(ids), 10)]
+        out.append("ENDOFSECTION")
+    for g, faces in sorted(sets.items()):
+        out += [" BOUNDARY CONDITIONS 2.4.6",
+                f"{g:>32d}{1:8d}{len(faces):8d}{0:8d}{6:8d}"]
+        out += [f"{e + 1:10d}{gtype:5d}{gface[f] + 1:5d}" for e, f in faces]
+        out.append("ENDOFSECTION")
+    with open(path, "w") as fh:
+        fh.write("\n".join(out) + "\n")
+
+
+def read_groups_bc(var, x, grp, t):
+    """Homogeneous Dirichlet on the boundary groups read from the file."""
+    return grp in NEU_GROUPS, 0.0
+
+
+def phase_gambit() -> dict:
+    """gambit-poisson-256: FEMuS's ReadCoarseMesh -> refine flow.  A
+    unit_box((32,32)) Q2 mesh is written as a Gambit .neu file with four
+    boundary groups, read back with read_neu, refined to NEU_LEVELS levels
+    (finest 256x256, 263,169 dofs), and Q2 Poisson with the sin sin
+    solution is solved on every depth (convergence_study; MG-CG on the
+    BELL operator to 1e-12, float64) with its Dirichlet conditions on the
+    read groups; B1 on the finest operator against its plain version."""
+    from femus_tpu_torch.mesh.gambit import read_neu
+    from femus_tpu_torch.mesh.generation import unit_box
+    from femus_tpu_torch.systems.fe_convergence import convergence_study
+    from femus_tpu_torch.systems.system import launch_counts
+
+    pi = np.pi
+    coarse = unit_box((NEU_COARSE, NEU_COARSE))
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "box32_quad9.neu")
+        t0 = time.perf_counter()
+        write_neu(coarse, path)
+        size = os.path.getsize(path)
+        t1 = time.perf_counter()
+        write_s = t1 - t0
+        mesh = read_neu(path)
+        read_s = time.perf_counter() - t1
+    same = (np.array_equal(mesh.coords, coarse.coords)
+            and np.array_equal(mesh.conn, coarse.conn)
+            and np.array_equal(mesh.elem_group, coarse.elem_group)
+            and sorted(mesh.boundary) == sorted(coarse.boundary)
+            and all(np.array_equal(getattr(mesh.boundary[fg], f),
+                                   getattr(coarse.boundary[fg], f))
+                    for fg in coarse.boundary
+                    for f in ("elem", "iface", "group", "conn")))
+    groups = sorted({int(g) for bf in mesh.boundary.values()
+                     for g in bf.group})
+    solves = []
+    reset_launches()
+    t0 = time.perf_counter()
+    res = convergence_study(
+        poisson_q2_solver("cuda", torch.float64, bc=read_groups_bc,
+                          solves=solves),
+        mesh, NEU_LEVELS,
+        {"u": lambda x: torch.sin(pi * x[:, 0]) * torch.sin(pi * x[:, 1])},
+        {"u": lambda x: pi * torch.stack(
+            [torch.cos(pi * x[:, 0]) * torch.sin(pi * x[:, 1]),
+             torch.sin(pi * x[:, 0]) * torch.cos(pi * x[:, 1])], dim=-1)},
+        device="cuda")
+    torch.cuda.synchronize()
+    rep = {"phase": "gambit", "file_bytes": size,
+           "write_s": write_s,
+           "read_s": read_s, "read_equals_generated": same,
+           "groups": groups, "seconds": time.perf_counter() - t0,
+           "n_dofs": [s["n_dofs"] for s in solves],
+           "cg_iters": [s["iters"] for s in solves],
+           "solve_s": [s["solve_s"] for s in solves],
+           "converged": [s["converged"] for s in solves],
+           "l2_errors": res.l2_errors["u"], "l2_orders": res.l2_orders["u"],
+           "h1_orders": res.h1_orders["u"],
+           "kernel_launches": launch_counts()}
+    emit(rep)
+    if not (same and groups == list(NEU_GROUPS)):
+        raise AssertionError("gambit: the read mesh differs from the "
+                             "written one")
+    if not (all(rep["converged"]) and rep["l2_orders"][-1] > 2.7):
+        raise AssertionError(f"gambit: solve or order\n{res.report()}")
+    if rep["kernel_launches"]["bell_spmv"] <= 0:
+        raise AssertionError("gambit: no B1 launch")
+    k = phase_kernel(solves[-1]["system"], "gambit_kernel",
+                     (("f64", torch.float64),))
+    return {**k, "launches": rep["kernel_launches"]["bell_spmv"]}
+
+
+def disk_markers(n: int, seed: int = 0) -> np.ndarray:
+    """``n`` points uniform in the disk of radius 0.4 about (0.5, 0.5)."""
+    rng = np.random.default_rng(seed)
+    r = 0.4 * np.sqrt(rng.uniform(size=n))
+    th = 2 * np.pi * rng.uniform(size=n)
+    return 0.5 + np.stack([r * np.cos(th), r * np.sin(th)], axis=1)
+
+
+def rotation_field(mesh):
+    """The Q2 rigid rotation u = -(y - 1/2), v = x - 1/2 (period 2 pi)."""
+    xy = mesh.coords[mesh.dofmap("biquadratic").nodes]
+    return -(xy[:, 1] - 0.5), xy[:, 0] - 0.5
+
+
+def phase_markers() -> dict:
+    """markers-256: 2^20 markers in a disk on unit_box((256,256)): locate
+    on the card (host nearest-centroid guess, float64 walk), then RK4
+    advection through the Q2 rigid rotation, one revolution in
+    MARKERS_STEPS steps (FEMuS ISM Line::AdvectionParallel); a 4,096-marker
+    subset located and advected on the host too; then ex05's magnetic
+    capture on MAGNETIC_COUNT markers."""
+    from femus_tpu_torch.mesh.generation import unit_box
+    from femus_tpu_torch.particles.forces import magnetic_force, wire_H
+    from femus_tpu_torch.particles.markers import (MarkerCloud, advect,
+                                                   locate, make_advect_fn)
+
+    mesh = unit_box((MARKERS_N, MARKERS_N))
+    pts = disk_markers(MARKERS_COUNT)
+    cloud = MarkerCloud(mesh, pts.copy(), np.zeros(len(pts), np.int64))
+    t0 = time.perf_counter()
+    locate(cloud, device="cuda")
+    locate_s = time.perf_counter() - t0
+    sub = MarkerCloud(mesh, pts[:MARKERS_SUBSET].copy(),
+                      np.zeros(MARKERS_SUBSET, np.int64))
+    locate(sub, device="cpu")
+    owners_equal = bool(np.array_equal(sub.elem, cloud.elem[:MARKERS_SUBSET]))
+    u, v = rotation_field(mesh)
+    f64 = dict(dtype=torch.float64, device="cuda")
+    step = make_advect_fn(mesh, ["biquadratic"] * 2, order=4, **f64)
+    vd = (torch.as_tensor(u, **f64), torch.as_tensor(v, **f64))
+    x = torch.as_tensor(cloud.x, **f64)
+    e = torch.as_tensor(cloud.elem, device="cuda")
+    dt = 2 * np.pi / MARKERS_STEPS
+    x, e = step(x, e, vd, dt)                     # warm
+    x = torch.as_tensor(cloud.x, **f64)
+    e = torch.as_tensor(cloud.elem, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(MARKERS_STEPS):
+        x, e = step(x, e, vd, dt)
+    torch.cuda.synchronize()
+    adv_s = time.perf_counter() - t0
+    ret = float((x - torch.as_tensor(pts, **f64)).abs().max())
+    located = int((e >= 0).sum())
+    # the subset, 1/10 revolution, card against host
+    cs = [MarkerCloud(mesh, sub.x.copy(), sub.elem.copy()) for _ in "ch"]
+    for c, dev in zip(cs, ("cuda", "cpu")):
+        advect(c, [u, v], ["biquadratic"] * 2, 2 * np.pi / 10,
+               MARKERS_STEPS // 10, order=4, dtype=torch.float64, device=dev)
+    sub_err = float(np.abs(cs[0].x - cs[1].x).max())
+    sub_owners = bool(np.array_equal(cs[0].elem, cs[1].elem))
+    # ex05: a wire at (0.95, 0.5) along z, slow rotation, capped drift
+    wire = (0.95, 0.5)
+    fm0 = magnetic_force(wire_H([*wire, 0.0], [0.0, 0.0, 1.0], I=1.857e5),
+                         D=2e-4, mu_f=3.5e-3, dim=2)
+
+    def capped(xb):
+        f = fm0(xb)
+        n = torch.linalg.norm(f, dim=1, keepdim=True) + 1e-30
+        return f * torch.clamp(0.5 / n, max=1.0)
+
+    rng = np.random.default_rng(1)
+    mp = 0.5 + rng.uniform(-0.25, 0.25, size=(MAGNETIC_COUNT, 2))
+    mc = MarkerCloud(mesh, mp.copy(), np.zeros(MAGNETIC_COUNT, np.int64))
+    locate(mc, device="cuda")
+    d0 = float(np.linalg.norm(mc.x - wire, axis=1).mean())
+    t0 = time.perf_counter()
+    advect(mc, [0.2 * u, 0.2 * v], ["biquadratic"] * 2, 4.0, 200, order=4,
+           force_fn=capped, dtype=torch.float64, device="cuda")
+    mag_s = time.perf_counter() - t0
+    dist = np.linalg.norm(mc.x - wire, axis=1)
+    rep = {"phase": "markers", "markers": MARKERS_COUNT,
+           "elements": mesh.n_elems, "locate_s": locate_s,
+           "located": int((cloud.elem >= 0).sum()),
+           "owners_equal_host_subset": owners_equal,
+           "steps": MARKERS_STEPS, "advect_s": adv_s,
+           "s_per_step": adv_s / MARKERS_STEPS,
+           "marker_steps_per_s": MARKERS_COUNT * MARKERS_STEPS / adv_s,
+           "located_after": located, "return_error": ret,
+           "subset_card_host_max_diff": sub_err,
+           "subset_owners_equal": sub_owners,
+           "magnetic": {"markers": MAGNETIC_COUNT, "seconds": mag_s,
+                        "mean_dist_before": d0,
+                        "mean_dist_after": float(dist.mean()),
+                        "within_0.15": int((dist < 0.15).sum()),
+                        "in_domain": int((mc.elem >= 0).sum())}}
+    emit(rep)
+    if not (rep["located"] == MARKERS_COUNT == located and owners_equal):
+        raise AssertionError(f"markers: location: {rep}")
+    if not (ret <= 1e-6 and sub_err <= 1e-12 and sub_owners):
+        raise AssertionError(f"markers: advection: {rep}")
+    if not rep["magnetic"]["mean_dist_after"] < d0:
+        raise AssertionError(f"markers: no magnetic capture: {rep}")
+    return rep
+
+
+def mpm_block(n: int, device):
+    """The elastic block of tests/test_mpm.py on unit_box((n, n)): a block
+    of 0.3 of the side (rounded to whole cells) centred in x, its bottom
+    one cell above the floor, neo-Hookean(50, 50), density 1, ppc = 4, the
+    floor's grid dofs fixed, gravity -1, FLIP 0.9, float64.  Returns
+    (mesh, state, step)."""
+    from femus_tpu_torch.mesh.generation import unit_box
+    from femus_tpu_torch.particles.mpm import (init_particles, make_mpm_step,
+                                               neo_hookean_stress)
+
+    h, w = 1.0 / n, max(1, round(0.3 * n))
+    x0, y0 = (n - w) // 2 * h, h
+    mesh = unit_box((n, n))
+    s = init_particles(mesh, lambda x: ((x[:, 0] > x0) & (x[:, 0] < x0 + w * h)
+                                        & (x[:, 1] > y0)
+                                        & (x[:, 1] < y0 + w * h)),
+                       ppc=4, density=1.0, device=device, dtype=torch.float64)
+    fixed = mesh.coords[mesh.dofmap("linear").nodes][:, 1] < 1e-9
+    step = make_mpm_step(mesh, neo_hookean_stress(50.0, 50.0),
+                         gravity=(0.0, MPM_G), flip=0.9, fixed_dofs=fixed,
+                         device=device, dtype=torch.float64)
+    return mesh, s, step
+
+
+def phase_mpm() -> dict:
+    """mpm-block-128: MPM_STEPS explicit steps of the block at 128x128
+    (about 23,000 particles) on the card, and the block at 8x8 on the card
+    and the host."""
+    from femus_tpu_torch.particles.mpm import grid_fields
+
+    mesh, s, step = mpm_block(MPM_N, "cuda")
+    M = float(s.mass.sum())
+    mi, _ = grid_fields(mesh, s)
+    # before contact (the lowest particle reaches y = h, where the floor's
+    # fixed dofs enter its element) the block falls freely
+    gap = float(s.x[:, 1].min()) - 1.0 / MPM_N
+    t_contact = np.sqrt(2 * gap / abs(MPM_G))
+    p, yc, jmin, jmax, ymin = [], [], 1.0, 1.0, 1.0
+    t0 = time.perf_counter()
+    for _ in range(MPM_STEPS):
+        s = step(s, MPM_DT)
+        J = torch.linalg.det(s.F)
+        row = torch.stack([(s.mass * s.v[:, 1]).sum() / M,
+                           (s.mass * s.x[:, 1]).sum() / M, J.min(), J.max(),
+                           s.x[:, 1].min()]).tolist()
+        p.append(row[0])
+        yc.append(row[1])
+        jmin, jmax = min(jmin, row[2]), max(jmax, row[3])
+        ymin = min(ymin, row[4])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    t = MPM_DT * np.arange(1, MPM_STEPS + 1)
+    free = t < t_contact
+    ff_err = float(np.abs(np.array(p)[free] - MPM_G * t[free]).max()
+                   / abs(MPM_G * t[free][-1]))
+    k0 = int(free.sum())
+    v_hit = abs(p[k0 - 1])
+    after = np.array(p[k0:])
+    drift = float(np.abs(np.array(yc[k0:]) - yc[k0 - 1]).max())
+    rep = {"phase": "mpm", "particles": int(s.x.shape[0]),
+           "grid_dofs": mesh.dofmap("linear").n_dofs, "steps": MPM_STEPS,
+           "dt": MPM_DT, "seconds": wall, "s_per_step": wall / MPM_STEPS,
+           "p2g_mass_rel_err": abs(float(mi.sum()) - M) / M,
+           "free_fall_steps": k0, "free_fall_rel_err": ff_err,
+           "impact_speed": v_hit, "vcom_after_min": float(after.min()),
+           "vcom_after_max": float(after.max()),
+           "vcom_last": p[-1], "com_drift_after_contact": drift,
+           "detF_min": jmin, "detF_max": jmax, "y_min": ymin,
+           "in_domain": int((s.elem >= 0).sum())}
+    # the same block at 8x8: card against host in float64 (the card's
+    # atomics add the P2G sums in another order)
+    out = []
+    for dev in ("cuda", "cpu"):
+        _, s8, step8 = mpm_block(8, dev)
+        for _ in range(MPM_REF_STEPS):
+            s8 = step8(s8, MPM_DT * MPM_N / 8)
+        out.append(s8)
+    rep["reference"] = {f: float((getattr(out[0], f).cpu()
+                                  - getattr(out[1], f)).abs().max()
+                                 / getattr(out[1], f).abs().max())
+                        for f in ("x", "v", "F")}
+    rep["reference"]["elem_equal"] = bool(torch.equal(out[0].elem.cpu(),
+                                                      out[1].elem))
+    emit(rep)
+    if not rep["p2g_mass_rel_err"] <= 1e-13:
+        raise AssertionError(f"mpm: P2G mass: {rep}")
+    if not (k0 >= 10 and ff_err <= 1e-10):
+        raise AssertionError(f"mpm: free fall: {rep}")
+    # the floor stops the fall: the centre of mass turns back up, never
+    # faster than it hit, and stays within half a cell of its height at
+    # contact; no particle leaves the mesh or goes below the floor
+    if not (after.max() > 0 and np.abs(after).max() <= 1.05 * v_hit
+            and drift <= 0.5 / MPM_N and ymin > 0
+            and rep["in_domain"] == rep["particles"]):
+        raise AssertionError(f"mpm: the block does not come to rest on the "
+                             f"floor: {rep}")
+    if not 0.5 < jmin <= jmax < 2.0:
+        raise AssertionError(f"mpm: det F: {rep}")
+    if not (max(rep["reference"][f] for f in ("x", "v", "F")) <= MPM_REF_TOL
+            and rep["reference"]["elem_equal"]):
+        raise AssertionError(f"mpm: card and host differ: {rep}")
+    return rep
+
+
+def mpm_fsi_case(n: int, device):
+    """ex06 (tests/test_mpm_fsi.py's sinking block) on unit_box((n, n)):
+    Q2 velocity, P1 pressure, rho_s 4, rho_f 1, mu_f 0.5, neo-Hookean(50,
+    50), dt 0.01, ppe 24, ppc 2, no-slip walls, float64.  Returns (fsi,
+    state, u)."""
+    from femus_tpu_torch.mesh.generation import unit_box
+    from femus_tpu_torch.particles.mpm import (init_particles,
+                                               neo_hookean_stress)
+    from femus_tpu_torch.systems.mpm_fsi import MonolithicMPMFSI
+
+    mesh = unit_box((n, n))
+    fsi = MonolithicMPMFSI(mesh, neo_hookean_stress(50.0, 50.0), rho_s=4.0,
+                           rho_f=1.0, mu_f=0.5,
+                           bc_fn=lambda var, x, grp, t: (var != "P", 0.0),
+                           dt=0.01, ppe=24, newton_iters=MPM_FSI_NEWTON,
+                           device=device, dtype=torch.float64)
+    s = init_particles(mesh, lambda x: ((x[:, 0] > 0.35) & (x[:, 0] < 0.65)
+                                        & (x[:, 1] > 0.55)
+                                        & (x[:, 1] < 0.85)),
+                       ppc=2, density=4.0, device=device,
+                       dtype=torch.float64)
+    u = torch.zeros(fsi.asm.n_dofs, dtype=torch.float64, device=device)
+    return fsi, s, u
+
+
+def phase_mpm_fsi() -> dict:
+    """mpm-fsi-sinking-64: MPM_FSI_STEPS implicit steps of ex06 at n = 64
+    (37,507 dofs): assembly with the particle form, P2G and G2P on the
+    card, each Newton correction by scipy spsolve on the host; then n = 6
+    on the card and the host."""
+    t0 = time.perf_counter()
+    fsi, s, u = mpm_fsi_case(MPM_FSI_N, "cuda")
+    setup_s = time.perf_counter() - t0
+    com = [float(s.x[:, 1].mean())]
+    t0 = time.perf_counter()
+    for _ in range(MPM_FSI_STEPS):
+        s, u = fsi.step(s, u)
+        com.append(float(s.x[:, 1].mean()))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    J = torch.linalg.det(s.F)
+    hist = fsi.history
+    rep = {"phase": "mpm_fsi", "n_dofs": fsi.asm.n_dofs,
+           "particles": int(s.x.shape[0]), "setup_s": setup_s,
+           "seconds": wall, "steps": MPM_FSI_STEPS,
+           "newton_its": [h["newton_its"] for h in hist],
+           "res_norms": [h["res_norms"] for h in hist],
+           "converged": [h["converged"] for h in hist],
+           "assembly_s": [h["assembly_s"] for h in hist],
+           "spsolve_s": [h["solve_s"] for h in hist],
+           "com_y": com, "detF_min": float(J.min()),
+           "detF_max": float(J.max()),
+           "max_grid_speed": float(u.abs().max()),
+           "in_domain": int((s.elem >= 0).sum())}
+    out = []
+    for dev in ("cuda", "cpu"):
+        f6, s6, u6 = mpm_fsi_case(6, dev)
+        for _ in range(2):
+            s6, u6 = f6.step(s6, u6)
+        out.append((s6, u6))
+    rep["reference"] = {f: float((getattr(out[0][0], f).cpu()
+                                  - getattr(out[1][0], f)).abs().max()
+                                 / getattr(out[1][0], f).abs().max())
+                        for f in ("x", "v", "F")}
+    rep["reference"]["u"] = float((out[0][1].cpu() - out[1][1]).abs().max()
+                                  / out[1][1].abs().max())
+    emit(rep)
+    if not all(rep["converged"]):
+        raise AssertionError(f"mpm_fsi: Newton missed newton_tol: {rep}")
+    if not (all(b < a for a, b in zip(com, com[1:]))
+            and 0.8 < rep["detF_min"] <= rep["detF_max"] < 1.2
+            and rep["in_domain"] == rep["particles"]):
+        raise AssertionError(f"mpm_fsi: the block does not sink: {rep}")
+    if not max(rep["reference"].values()) <= 1e-8:
+        raise AssertionError(f"mpm_fsi: card and host differ: {rep}")
+    return rep
+
+
+def phase_projection() -> dict:
+    """projection-256: projection_matrix from unit_box((256,256)) Q2 onto
+    unit_box((200,200)) Q2 shifted by PROJ_SHIFT (160,801 destination
+    dofs), point location and basis evaluation on the card; exact on a
+    quadratic, the rows of points outside the source empty."""
+    from femus_tpu_torch.mesh.generation import box, unit_box
+    from femus_tpu_torch.mesh.projection import projection_matrix
+
+    src = unit_box((PROJ_SRC, PROJ_SRC))
+    dst = box((PROJ_DST, PROJ_DST), [(PROJ_SHIFT[0], 1 + PROJ_SHIFT[0]),
+                                     (PROJ_SHIFT[1], 1 + PROJ_SHIFT[1])])
+    t0 = time.perf_counter()
+    M = projection_matrix(src, "biquadratic", dst, device="cuda")
+    wall = time.perf_counter() - t0
+
+    def quad(x):
+        return 1.0 + 2 * x[:, 0] - x[:, 1] + 3 * x[:, 0] * x[:, 1] \
+            - x[:, 1] ** 2
+
+    xs = src.node_coords_of("biquadratic")
+    xd = dst.node_coords_of("biquadratic")
+    eps = 1e-9
+    inside = ((xd >= -eps) & (xd <= 1 + eps)).all(axis=1)
+    got = M @ quad(xs)
+    rows = np.diff(M.indptr)
+    rep = {"phase": "projection", "src_dofs": M.shape[1],
+           "dst_dofs": M.shape[0], "nnz": int(M.nnz), "seconds": wall,
+           "outside_points": int((~inside).sum()),
+           "max_err_inside": float(np.abs(got[inside]
+                                          - quad(xd[inside])).max()),
+           "outside_rows_nonempty": int((rows[~inside] > 0).sum()),
+           "inside_rows_empty": int((rows[inside] == 0).sum())}
+    emit(rep)
+    if not (rep["max_err_inside"] <= 1e-10 and rep["outside_points"] > 0
+            and rep["outside_rows_nonempty"] == 0
+            and rep["inside_rows_empty"] == 0):
+        raise AssertionError(f"projection: {rep}")
+    return rep
+
+
+def uq_poisson(n: int, device, dtype=torch.float64):
+    """ex07's stochastic Poisson -div(e^xi grad u) = 1 on unit_box((n, n))
+    Q2, homogeneous Dirichlet: (solve(kappa) -> (u at (1/2, 1/2), CG
+    report), the assembled operator at kappa = 1 and its pattern).  Each
+    solve assembles with ``kappa`` as an aux scalar and runs Jacobi-CG to
+    1e-12 on the BELL frame."""
+    from femus_tpu_torch.algebra.bell import on_bell_frame
+    from femus_tpu_torch.algebra.krylov import jacobi_cg
+    from femus_tpu_torch.assembly.bc import generate_bdc
+    from femus_tpu_torch.assembly.engine import Assembler, Unknown
+    from femus_tpu_torch.mesh.generation import unit_box
+
+    mesh = unit_box((n, n))
+    fam = "biquadratic"
+    a = Assembler(mesh, [Unknown("u", fam)], quad_order="fifth",
+                  dtype=dtype, device=device)
+
+    def form(ops, u, aux):
+        one = ops.pointwise(lambda x: 1.0 + 0.0 * x[..., 0])
+        return {"u": aux["kappa"] * ops.tgrad(fam, ops.grad(fam, u["u"]))
+                - ops.t(fam, one)}
+
+    a.set_volume_form(form)
+    generate_bdc(a, lambda var, x, grp, t: (True, 0.0))
+    assemble = a.make_assemble_fn()
+    xy = mesh.coords[mesh.dofmap(fam).nodes]
+    centre = int(np.argmin(np.abs(xy - 0.5).sum(axis=1)))
+    u0 = torch.zeros(a.n_dofs, dtype=dtype, device=device)
+
+    def solve(kappa: float):
+        R, data = assemble(u0, {"kappa": kappa})
+        A = on_bell_frame(a.op_with(data), a.pattern, device)
+        u, info = jacobi_cg(A, -R, tol=1e-12, maxiter=20000)
+        return float(u[centre]), info
+
+    _, data1 = assemble(u0, {"kappa": 1.0})
+    return solve, data1, a.pattern
+
+
+def phase_uq() -> dict:
+    """uq-pce-128: (a) ex07's collocation at 128x128 Q2: one Jacobi-CG solve
+    on B1 per Hermite node (nq_1d = UQ_NQ), PCE coefficients of u at the
+    centre against the closed form c_k = u0 (-1)^k e^(1/2) / sqrt(k!),
+    whose quadrature error at UQ_NQ nodes is computed here on the host;
+    (b) the tables at 4 dimensions, total degree 6 (210 terms) on the
+    card; (c) fit_pdf of UQ_SAMPLES card-drawn 2-D Gaussian samples at
+    levels 5, 6 and 7 (769 basis functions)."""
+    import math
+
+    from femus_tpu_torch.algebra.bell import bell_device_plan
+    from femus_tpu_torch.systems.system import launch_counts
+    from femus_tpu_torch.uq import pce
+    from femus_tpu_torch.uq.sparse_grid import avg_l2_error, fit_pdf
+
+    t0 = time.perf_counter()
+    solve, data1, pat = uq_poisson(UQ_N, "cuda")
+    setup_s = time.perf_counter() - t0
+    idx = pce.total_degree_set(1, UQ_DEG)
+    infos = []
+
+    def fn(pts):
+        out = []
+        for xi in pts[:, 0].tolist():
+            val, info = solve(math.exp(xi))
+            out.append(val)
+            infos.append(info)
+        return torch.tensor(out, dtype=torch.float64)
+
+    reset_launches()
+    t0 = time.perf_counter()
+    c = pce.pce_project("hermite", idx, fn, UQ_NQ, device="cuda").cpu().numpy()
+    torch.cuda.synchronize()
+    colloc_s = time.perf_counter() - t0
+    launches = launch_counts()["bell_spmv"]
+    u0, _ = solve(1.0)
+    ks = np.arange(UQ_DEG + 1)
+    fact = np.array([math.factorial(k) for k in ks], float)
+    closed = (-1.0) ** ks * np.exp(0.5) / np.sqrt(fact)
+    # the quadrature's own error on e^(-xi), host numpy (no PDE)
+    x, w = pce.quadrature_1d("hermite", UQ_NQ)
+    P = np.stack([pce.polys_1d("hermite", UQ_DEG, x, "cpu").numpy()[k]
+                  for k in ks])
+    quad_err = np.abs(P @ (w * np.exp(-x)) - closed)
+    err = np.abs(c - u0 * closed)
+    tol = (quad_err + 1e-9) * abs(u0)
+    # (b) the tables
+    t0 = time.perf_counter()
+    iset = pce.total_degree_set(4, 6)
+    G = pce.stochastic_mass_matrix("hermite", iset, 7, device="cuda")
+    C = pce.triple_product_tensor("hermite", iset, 10, device="cuda")
+    torch.cuda.synchronize()
+    tables_s = time.perf_counter() - t0
+    eye = torch.eye(len(iset), dtype=torch.float64, device="cuda")
+    cmax = float(C.abs().max())
+    # (c) the sparse grid
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    samples = torch.randn(UQ_SAMPLES, 2, generator=gen, device="cuda",
+                          dtype=torch.float64)
+    true = lambda x: np.exp(-(x ** 2).sum(1) / 2) / (2 * np.pi)   # noqa: E731
+    sg = []
+    for lvl in UQ_SG_LEVELS:
+        t1 = time.perf_counter()
+        pdf = fit_pdf(samples, lvl, bounds=np.array([[-4.0, 4.0]] * 2),
+                      device="cuda")
+        torch.cuda.synchronize()
+        sg.append({"level": lvl, "basis": len(pdf.levels),
+                   "fit_s": time.perf_counter() - t1,
+                   "avg_l2_error": avg_l2_error(pdf, true)})
+    rep = {"phase": "uq", "n_dofs": pat.n_rows, "setup_s": setup_s,
+           "collocation_s": colloc_s, "nodes": UQ_NQ,
+           "cg_iters": [i.iters for i in infos],
+           "converged": all(i.converged for i in infos),
+           "u0": u0, "coeffs": c.tolist(),
+           "coeff_err": err.tolist(), "coeff_tol": tol.tolist(),
+           "kernel_launches": launch_counts(),
+           "tables_terms": len(iset), "tables_s": tables_s,
+           "mass_minus_identity": float((G - eye).abs().max()),
+           "triple_asym": max(float((C - C.transpose(0, 1)).abs().max()),
+                              float((C - C.transpose(0, 2)).abs().max())
+                              ) / cmax,
+           "sparse_grid": sg}
+    emit(rep)
+    if not (rep["converged"] and (err <= tol).all()):
+        raise AssertionError(f"uq: collocation: {rep}")
+    if not (rep["mass_minus_identity"] <= 1e-12
+            and rep["triple_asym"] <= 1e-12):
+        raise AssertionError(f"uq: tables: {rep}")
+    if not sg[-1]["avg_l2_error"] < sg[0]["avg_l2_error"]:
+        raise AssertionError(f"uq: sparse-grid error does not fall: {rep}")
+    if launches <= 0:
+        raise AssertionError("uq: the collocation ran no B1")
+    dev, _ = bell_device_plan(pat, "identity", "cuda")
+    k = b1_rows(data1, pat, dev, "uq_kernel", (("f64", torch.float64),))
+    return {**k, "launches": launches}
+
+
+def run_slice9() -> dict:
+    """The slice-9 phases in order; their reports by short name (each
+    path's B1 launches counted from 0 around it)."""
+    return {"gambit": phase_gambit(), "markers": phase_markers(),
+            "mpm": phase_mpm(), "mpm_fsi": phase_mpm_fsi(),
+            "projection": phase_projection(), "uq": phase_uq()}
+
+
 def card_line() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3457,6 +4156,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    t_run = time.perf_counter()
     try:
         import femus_tpu_torch  # noqa: F401  (needs the repo checkout)
         card = card_line()
@@ -3525,6 +4225,10 @@ def main() -> int:
         # forms, surface FE, the batch-first layout, mixed-element meshes
         # and the nonlocal operator, all through kernel B1
         s8 = run_slice8()
+        # slice 9: the mesh readers (a Gambit file read and refined, a
+        # Poisson solve on it), Lagrangian markers, explicit MPM and
+        # MPM-FSI, mesh-to-mesh projection and UQ
+        s9 = run_slice9()
         # slice 5: monolithic FSI on the BELL-frame operator, steady and
         # transient
         fsys, fsol, fsetup = phase_fsi_setup()
@@ -3543,6 +4247,7 @@ def main() -> int:
     except Exception:
         traceback.print_exc()
         return 1
+    emit({"phase": "run", "seconds": time.perf_counter() - t_run})
     print(card)
     emit({"kernels": [{
         "name": "bell_spmv", "route": "cuda",
@@ -3551,7 +4256,7 @@ def main() -> int:
         "launches": launches, "max_abs_err": k["max_abs_err"],
         "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
         "bound_by": k["bound_by"], "library_ms": k["library_ms"],
-        # the same kernel on the FSI Jacobian (fsi-bed-128), main path and
+        # the same kernel on the FSI Jacobian (fsi-bed-64), main path and
         # transient drive
         "fsi_launches": fmain["kernel_launches"]["bell_spmv"],
         "fsi_transient_launches": ftr["kernel_launches"]["bell_spmv"],
@@ -3590,6 +4295,16 @@ def main() -> int:
            for key in KERNEL_KEYS + ("fill",)},
         "nonlocal_values": "f64",
         **{"nonlocal_" + key: s8["nonlocal"][key]
+           for key in KERNEL_KEYS + ("fill",)},
+        # and on the slice-9 paths: Q2 Poisson on the mesh read from a
+        # Gambit file (gambit-poisson-256) and ex07's collocation operator
+        # (uq-pce-128), both float64
+        "gambit_launches": s9["gambit"]["launches"],
+        "uq_launches": s9["uq"]["launches"],
+        "gambit_values": "f64", "uq_values": "f64",
+        **{"gambit_" + key: s9["gambit"][key]
+           for key in KERNEL_KEYS + ("fill",)},
+        **{"uq_" + key: s9["uq"][key]
            for key in KERNEL_KEYS + ("fill",)}}, {
         "name": "patch_stencil", "route": "cuda",
         "source": "femus_tpu_torch/algebra/csrc/patch_stencil.cu",

@@ -411,6 +411,9 @@ class Assembler:
         # element-local auxiliary fields (name, family): global dof vectors
         # of another field the form reads per element as aux[name] (nd, ne)
         self.aux_field_specs: List[Tuple[str, str]] = []
+        # material-point residual terms (set_particle_form)
+        self.particle_form: Optional[Callable] = None
+        self.particle_payload_names: Tuple[str, ...] = ()
         self._tables_cache = None
         # ---- patch-stencil matrix layout (set_patch_layout) --------------
         self.patch_tab = None
@@ -505,6 +508,89 @@ class Assembler:
         ``aux_fields[name]`` as its element-local values ``aux[name]``."""
         self.aux_field_specs.append((name, family))
         self._tables_cache = None
+
+    def set_particle_form(self, fn: Callable,
+                          payload_names: Sequence[str]) -> None:
+        """Residual contribution of material points to their owner element.
+
+        fn(u: dict name -> (nd,) element-local dofs, p: dict payload-name ->
+        one particle's tensors, aux: dict scalars) -> dict name -> (nd,),
+        called one particle at a time under ``torch.func.vmap``.
+
+        This is the monolithic MPM-FSI coupling hook: the reference adds
+        solid-particle stress/inertia terms to the background-grid momentum
+        rows inside the assembly loop (applications/MPM_FSI; grid transfer
+        Line.hpp:81-87).  Particle terms couple only the owner element's
+        dofs, so the Jacobian lands in the existing element ELL slots.
+        Particle data is regrouped per call via :meth:`particle_tables` and
+        supplied as ``tables['particles']``.
+        """
+        self.particle_form = fn
+        self.particle_payload_names = tuple(payload_names)
+
+    def particle_tables(self, elems, payload: Dict[str, torch.Tensor],
+                        ppe: int) -> dict:
+        """Group particles by owner element into fixed (ne, ppe) slots.
+
+        elems: (np_,) owner element per particle (-1 = inactive).  payload:
+        per-particle tensors (np_, ...), gathered on the device into
+        (ne, ppe, ...); an empty slot gathers particle 0 and is masked out.
+        The grouping is a stable sort by element and each particle's rank
+        in its group (host).  Raises if any element holds more than ``ppe``
+        particles (static capacity)."""
+        elems = torch.as_tensor(elems).cpu().numpy().astype(np.int64)
+        ne = self.mesh.n_elems
+        act = np.nonzero(elems >= 0)[0]
+        order = act[np.argsort(elems[act], kind="stable")]
+        grp = elems[order]
+        counts = np.bincount(grp, minlength=ne)
+        if counts.max(initial=0) > ppe:
+            raise ValueError(f"element {int(np.argmax(counts > ppe))} holds "
+                             f"more than ppe={ppe} particles")
+        rank = np.arange(len(order)) - (np.cumsum(counts) - counts)[grp]
+        idx = np.zeros((ne, ppe), np.int64)
+        mask = np.zeros((ne, ppe), bool)
+        idx[grp, rank] = order
+        mask[grp, rank] = True
+        gidx = torch.as_tensor(idx, device=self.device)
+        return {"mask": torch.as_tensor(mask, device=self.device),
+                "payload": {k: torch.as_tensor(v, device=self.device)[gidx]
+                            for k, v in payload.items()}}
+
+    def _add_particles(self, u, tables, aux_scalars, R, data,
+                       with_jacobian: bool):
+        """Add the material points' residuals (one ``vmap`` over the slots
+        of each element, masked with ``torch.where`` — an empty slot holds
+        particle 0's data, whose terms may be inf) to ``R`` and, with
+        ``with_jacobian``, their element Jacobians (``vmap(jacfwd(...))``
+        over the elements) to the flat ELL ``data`` through the element
+        slots."""
+        pt = tables["particles"]
+        names = self.particle_payload_names
+        pay = [pt["payload"][k] for k in names]
+        aux = dict(aux_scalars or {})
+
+        def single(uu, mi, *one):
+            out = self.particle_form(uu, dict(zip(names, one)), dict(aux))
+            vec = torch.cat([out[un.name] if un.name in out
+                             else uu[un.name].new_zeros(uu[un.name].shape)
+                             for un in self.unknowns])
+            return torch.where(mi, vec, torch.zeros_like(vec))
+
+        def pone(ul, m, *pv):
+            return torch.func.vmap(single, in_dims=(None,) + (0,) * (
+                1 + len(pv)))(self._split(ul), m, *pv).sum(dim=0)
+
+        u_loc = u[tables["edofs"]]                       # (ne, ndt)
+        if with_jacobian:
+            jp, rp = torch.func.vmap(torch.func.jacfwd(
+                lambda *a: (pone(*a),) * 2, has_aux=True))(
+                    u_loc, pt["mask"], *pay)
+            data = data.index_add(0, tables["slots"], jp.reshape(-1))
+        else:
+            rp = torch.func.vmap(pone)(u_loc, pt["mask"], *pay)
+        R = R.index_add(0, tables["edofs"].reshape(-1), rp.reshape(-1))
+        return R, data
 
     def _split(self, u_flat: torch.Tensor) -> Dict[str, torch.Tensor]:
         return {u.name: u_flat[self.local_slices[u.name]] for u in self.unknowns}
@@ -846,7 +932,9 @@ class Assembler:
         pass_tables=False: (u, aux_scalars, aux_fields) -> (R, data) with
         the tables built once and closed over.
         pass_tables=True: (u, tables, aux_scalars, aux_fields) -> (R, data)
-        with tables supplied per call.  ``aux_scalars`` (e.g. ``nu``) and
+        with tables supplied per call (``tables['particles']``, from
+        :meth:`particle_tables`, adds the particle form's terms).
+        ``aux_scalars`` (e.g. ``nu``) and
         the element-local ``aux_fields`` (see :meth:`_element_fn`) reach
         the form's ``aux`` dict.
 
@@ -877,6 +965,11 @@ class Assembler:
                 data = torch.zeros(nrows * w, dtype=self.dtype,
                                    device=self.device)
                 data.index_add_(0, tables["slots"], jac)
+            if (self.particle_form is not None
+                    and tables.get("particles") is not None):
+                R, data = self._add_particles(
+                    u.to(device=self.device, dtype=self.dtype), tables,
+                    aux_scalars, R, data, with_jacobian)
             if self.face_form is not None:
                 R, data = self._add_faces(
                     u.to(device=self.device, dtype=self.dtype), tables,

@@ -4,7 +4,8 @@ The JAX package's objects hand over as plain numpy arrays (its operators'
 ``data``/``cols``, its BELL plan's index arrays and slab, its patch
 operators' weights and one-hot routing matrices, its DIA and lattice-stencil
 operators' data and offsets, its solution fields, old fields and aux
-fields), so both packages can compute on the same operator and state.
+fields, its material points and markers), so both packages can compute on
+the same operator and state.
 """
 from __future__ import annotations
 
@@ -133,3 +134,33 @@ def aux_fields_from_numpy(arrays: Mapping[str, np.ndarray], device="cuda",
     device = resolve_device(device)
     return {k: torch.as_tensor(np.asarray(v), dtype=dtype, device=device)
             for k, v in arrays.items()}
+
+
+MPM_FIELDS = ("x", "v", "F", "mass", "vol0", "elem")
+
+
+def mpm_state_from_numpy(arrays: Mapping[str, np.ndarray], device="cuda",
+                         dtype: Optional[torch.dtype] = None):
+    """A material-point state from its arrays (``x``, ``v``, ``F``,
+    ``mass``, ``vol0``, ``elem`` — the fields of either package's
+    ``MPMState``), so both packages step the same cloud."""
+    from .particles.mpm import MPMState
+
+    device = resolve_device(device)
+    dtype = dtype or torch.float64
+    out = {k: torch.as_tensor(np.array(arrays[k]),
+                              dtype=torch.int64 if k == "elem" else dtype,
+                              device=device) for k in MPM_FIELDS}
+    return MPMState(**out)
+
+
+def marker_cloud_from_numpy(mesh, x: np.ndarray, elem: np.ndarray,
+                            fields: Optional[Mapping[str, np.ndarray]] = None):
+    """A marker cloud of the port on its ``mesh`` from positions, owner
+    elements and named per-marker fields (those of either package's
+    ``MarkerCloud``)."""
+    from .particles.markers import MarkerCloud
+
+    return MarkerCloud(mesh, np.array(x, np.float64),
+                       np.array(elem, np.int64),
+                       {k: np.array(v) for k, v in (fields or {}).items()})

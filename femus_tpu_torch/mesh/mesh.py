@@ -208,3 +208,32 @@ def boundary_node_groups(mesh: Mesh) -> Dict[int, np.ndarray]:
         for k in range(len(bf.elem)):
             out.setdefault(int(bf.group[k]), set()).update(bf.conn[k].tolist())
     return {grp: np.array(sorted(s), np.int32) for grp, s in out.items()}
+
+
+def elem_neighbors(mesh: Mesh) -> np.ndarray:
+    """(n_elems, n_faces) element id across each face, -1 on the boundary
+    (reference ``_elementNearFace``, Elem.hpp:463) — built once on host via
+    sorted-corner face keys."""
+    g = GEOMS[mesh.geom]
+    nf = len(g.faces)
+    keys_all, elems_all, ifaces_all = [], [], []
+    for i, (fg, f_bq) in enumerate(g.faces):
+        nvf = GEOMS[fg].n_verts
+        corners = np.sort(mesh.conn[:, np.asarray(f_bq[:nvf])], axis=1)
+        keys_all.append(corners)
+        elems_all.append(np.arange(mesh.n_elems, dtype=np.int64))
+        ifaces_all.append(np.full(mesh.n_elems, i, np.int64))
+    keys = np.concatenate(keys_all)
+    elems = np.concatenate(elems_all)
+    ifaces = np.concatenate(ifaces_all)
+    _, inv = np.unique(keys, axis=0, return_inverse=True)
+    inv = inv.reshape(-1)
+    out = np.full((mesh.n_elems, nf), -1, np.int32)
+    order = np.argsort(inv, kind="stable")
+    si, se, sf = inv[order], elems[order], ifaces[order]
+    # pairs: consecutive equal face keys
+    a = np.where(si[:-1] == si[1:])[0]
+    b = a + 1
+    out[se[a], sf[a]] = se[b]
+    out[se[b], sf[b]] = se[a]
+    return out

@@ -277,3 +277,54 @@ def test_slice8_entry_points_raise_without_cuda(no_cuda):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         MixedAssembler(mixed_unit_box((2, 2)), [Unknown("u")])
     MixedAssembler(mixed_unit_box((2, 2)), [Unknown("u")], device="cpu")
+
+
+def test_slice9_modules_are_covered():
+    """The mesh readers (the port's own copies of the numpy-only
+    mesh/gambit.py and mesh/med.py), markers, forces, MPM, MPM-FSI,
+    projection and UQ modules are among those the import checks walk."""
+    mods = set(_modules())
+    for m in ("mesh.gambit", "mesh.med", "mesh.projection",
+              "particles.markers", "particles.forces", "particles.mpm",
+              "systems.mpm_fsi", "uq.pce", "uq.sparse_grid"):
+        assert f"femus_tpu_torch.{m}" in mods, m
+
+
+def test_slice9_entry_points_raise_without_cuda(no_cuda):
+    """locate, make_advect_fn, init_particles, make_mpm_step,
+    MonolithicMPMFSI, projection_matrix, the PCE tables and fit_pdf run on
+    the card unless asked for the host."""
+    from femus_tpu_torch.mesh.generation import unit_box
+    from femus_tpu_torch.mesh.projection import projection_matrix
+    from femus_tpu_torch.particles.markers import (MarkerCloud, locate,
+                                                   make_advect_fn)
+    from femus_tpu_torch.particles.mpm import (init_particles, make_mpm_step,
+                                               neo_hookean_stress)
+    from femus_tpu_torch.systems.mpm_fsi import MonolithicMPMFSI
+    from femus_tpu_torch.uq.pce import stochastic_mass_matrix
+    from femus_tpu_torch.uq.sparse_grid import fit_pdf
+
+    mesh = unit_box((2, 2))
+    cloud = MarkerCloud(mesh, np.array([[0.3, 0.6]]), np.zeros(1, np.int64))
+    block = lambda x: x[:, 1] > 0.5                     # noqa: E731
+    samples = np.random.default_rng(0).normal(size=(50, 1))
+    calls = {
+        "locate": lambda **kw: locate(cloud, **kw),
+        "make_advect_fn": lambda **kw: make_advect_fn(
+            mesh, ["biquadratic"] * 2, **kw),
+        "init_particles": lambda **kw: init_particles(mesh, block, 2, **kw),
+        "make_mpm_step": lambda **kw: make_mpm_step(
+            mesh, neo_hookean_stress(1.0, 1.0), **kw),
+        "MonolithicMPMFSI": lambda **kw: MonolithicMPMFSI(
+            mesh, neo_hookean_stress(1.0, 1.0), 2.0, 1.0, 0.1,
+            lambda var, x, grp, t: (var != "P", 0.0), 0.01, **kw),
+        "projection_matrix": lambda **kw: projection_matrix(
+            mesh, "biquadratic", unit_box((1, 1)), **kw),
+        "stochastic_mass_matrix": lambda **kw: stochastic_mass_matrix(
+            "hermite", np.array([[0], [1]]), 3, **kw),
+        "fit_pdf": lambda **kw: fit_pdf(samples, 3, **kw)}
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+        call(device="cpu")
+    assert cloud.elem[0] >= 0

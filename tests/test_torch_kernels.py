@@ -708,3 +708,75 @@ def test_manifold_assembly_on_card_matches_host(cuda, case):
         ref = out["cpu"][k]
         assert float((out["cuda"][k] - ref).abs().max()) <= \
             1e-12 * float(ref.abs().max())
+
+
+@pytest.mark.cuda
+def test_bell_kernel_on_read_mesh_operator(cuda, tmp_path):
+    """B1 on the Q2 Poisson operator of a mesh read from a Gambit .neu file
+    (unit_box((16,16)) written by chip_smoke.write_neu, read back, refined
+    twice: 16,641 rows), in the plan a solve builds, against its plain
+    version in float64 and float32."""
+    from chip_smoke import write_neu
+    from femus_tpu_torch.algebra.bell import bell_device_plan
+    from femus_tpu_torch.mesh.gambit import read_neu
+    from femus_tpu_torch.mesh.multilevel import MultiLevelMesh
+
+    path = str(tmp_path / "box.neu")
+    write_neu(unit_box((16, 16)), path)
+    mesh = MultiLevelMesh(read_neu(path), 3).finest()
+    a = Assembler(mesh, [Unknown("u")], device="cpu")
+    a.set_volume_form(poisson("u", rhs=lambda x: 1.0 + 0.0 * x[:, 0]))
+    generate_bdc(a, lambda var, x, grp, t: (grp in (1, 2, 3, 4), 0.0))
+    _, data = a.make_assemble_fn()(torch.zeros(a.n_dofs,
+                                               dtype=torch.float64))
+    dev, note = bell_device_plan(a.pattern, "identity", cuda)
+    assert note["path"] == "bell" and dev.n == 16641
+    x = torch.as_tensor(np.random.default_rng(6).standard_normal(dev.n),
+                        device=cuda)
+    for dt, rtol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
+        op = bell.relayout_ell(dev, data.to(cuda), dtype=dt, device=cuda)
+        xv = x.to(dt)
+        n0 = bell.spmv_bell_cuda.launches
+        y = op.matvec_frame(xv)
+        torch.cuda.synchronize()
+        assert bell.spmv_bell_cuda.launches == n0 + 1
+        y_ref = bell._matvec_plain_frame(op, xv)
+        scale = bell._matvec_plain_frame(_abs_op(op), xv.abs()).abs().max()
+        assert float((y - y_ref).abs().max()) <= rtol * float(scale)
+
+
+@pytest.mark.cuda
+def test_particle_form_assembly_on_card_matches_host(cuda):
+    """MonolithicMPMFSI's assembly with the particle form (vmap of jacfwd
+    over the (ne, ppe) slots) on the card against the host in float64, on
+    the same particles and state."""
+    from femus_tpu_torch.particles.mpm import init_particles, neo_hookean_stress
+    from femus_tpu_torch.systems.mpm_fsi import MonolithicMPMFSI
+
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        mesh = unit_box((5, 5))
+        fsi = MonolithicMPMFSI(mesh, neo_hookean_stress(50.0, 50.0), 4.0,
+                               1.0, 0.5,
+                               lambda var, x, grp, t: (var != "P", 0.0),
+                               0.01, ppe=16, device=dev, dtype=torch.float64)
+        s = init_particles(mesh, lambda x: (x[:, 0] > 0.3) & (x[:, 1] > 0.4),
+                           ppc=2, density=4.0, device=dev,
+                           dtype=torch.float64)
+        phi, gphi = fsi._shape_at(s.x, s.elem)
+        tables = dict(fsi._tables)
+        tables["particles"] = fsi.asm.particle_tables(
+            s.elem, {"phi": phi, "gphi": gphi, "F": s.F, "vol0": s.vol0,
+                     "mass": s.mass, "v_old": s.v}, fsi.ppe)
+        rng = np.random.default_rng(2)
+        u = torch.as_tensor(rng.normal(0, 0.1, fsi.asm.n_dofs), device=dev)
+        old = {vn + "_old": torch.as_tensor(
+            rng.normal(0, 0.1, fsi.asm.dofmaps[vn].n_dofs), device=dev)
+            for vn in fsi.vel_names}
+        R, data = fsi._assemble(u, tables, {"dt": torch.tensor(
+            0.01, dtype=torch.float64, device=dev)}, old)
+        out[dev.type] = (R.cpu(), data.cpu())
+    for k in range(2):
+        ref = out["cpu"][k]
+        assert float((out["cuda"][k] - ref).abs().max()) <= \
+            1e-12 * float(ref.abs().max())
