@@ -293,7 +293,7 @@ MARKERS_*, MAGNETIC_COUNT, MPM_*, MPM_FSI_*, PROJ_*, UQ_*):
                     stops the fall (see phase_mpm), det F in (0.5, 2),
                     card = host to MPM_REF_TOL;
 43. mpm_fsi       — mpm-fsi-sinking-64: ex06 at n = 64 (37,507 dofs, 1,482
-                    material points), 5 implicit steps: assembly with the
+                    material points), 3 implicit steps: assembly with the
                     particle form, P2G and G2P on the card, scipy spsolve
                     on the host (seconds apart); n = 6 for 2 steps on the
                     card and the host; gates: Newton meets newton_tol every
@@ -315,6 +315,58 @@ MARKERS_*, MAGNETIC_COUNT, MPM_*, MPM_FSI_*, PROJ_*, UQ_*):
                     rtol, coefficients within tolerance, mass matrix = I to
                     1e-12, triple products symmetric, the sparse grid's L2
                     error falls from level 5 to 7, B1 launched.
+
+Slice 10, the multi-device layer and the 3-D patch operator, after phase
+45 (``run_slice10``; constants DIST_*, PATCH3D_*).  The CUDA and native
+libraries are built before any rank starts.  DIST_RANKS = 4 rank processes
+share the one card over gloo (``parallel.ranks.launch``: spawn, a file
+store, a join timeout; a failed or hung rank fails the phase); each phase
+line names the backend and that the ranks share the card:
+
+46. dist_partition — RCB, graph and contiguous partitions of the
+                    gambit-poisson-256 mesh into 4 (native library
+                    required): edge cut, ghosts per rank, the Q2 halo
+                    plan's m and offsets, native and numpy seconds;
+47. dist_halo     — the halo SpMV on 4 ranks, B1 per rank (interior and
+                    boundary sliced-ELL blocks) and the ELL gather, through
+                    all_to_all (auto: gloo's send/recv refuse CUDA tensors,
+                    so ppermute waits for NCCL on cards of their own), with
+                    and without overlap, on the cavity-128 Jacobian (f32, f64) and the
+                    263,169-dof Poisson operator (f64); gates against the
+                    global B1: f32 1e-5, f64 1e-12 of max(|A||x|); each
+                    rank's B1 blocks against their plain version, timed one
+                    rank at a time, the rank's whole product beside one
+                    CSR product of its block and the interior launch
+                    beside the CSR of its own columns; exchange and SpMV
+                    ms per rank;
+48. dist_step     — make_sharded_step on 4 ranks against world size 1:
+                    263,169-dof Poisson, Galerkin V-cycle (4 levels,
+                    Jacobi), CG to 1e-8, f64 (equal iterations, solutions
+                    within 1e-9); the dryrun_multichip cavity step at
+                    cavity-64 (within 1e-8); the production step's seconds
+                    (cold, warm), then an instrumented step (same
+                    solution) with seconds per iteration in exchange,
+                    local matvec and reductions;
+49. dist_patch    — poisson-patch-1M's operator over 4 slabs of patches,
+                    B2 on each slab, skeleton closed by one all_reduce;
+                    gate against the global B2 at 1e-5 of max(|A||x|);
+                    each slab's B2 beside one CSR product of the slab;
+50. dist_markers  — markers-256's 2^20 markers, 40 RK4 steps over 4 ranks
+                    with all_to_all migration: migrations and drops (0)
+                    per step; elements equal and positions within 1e-12 of
+                    the one-rank cloud;
+51. nccl_world1   — the dist_halo and dist_step code at world size 1 on
+                    NCCL (it initialises and reduces; no multi-card test);
+52. patch3d       — operator="patch" Poisson on
+                    PatchedMultiLevelMesh(unit_box((6,6,6), "hex"), 4)
+                    (finest 48^3 elements, 912,673 dofs, float32): the 3-D
+                    patch matvec against B1 on the ELL operator of the same
+                    matrix at the 117,649-dof level (1e-5 relative; the
+                    finest level's ELL set-up took 436 s on the host of
+                    an H100 machine), the
+                    solve's iterations and
+                    seconds, and unit_box((2,2,2)) at 3 levels on the card
+                    (float32) against the host (float64).
 
 Then the card's name and power limit, the kernel table as one JSON line,
 and the final status line.
@@ -464,11 +516,14 @@ NONLOCAL_N, NONLOCAL_DELTA = 64, 0.1
 # above level 5's, 0.00373 against 0.00239 in a host float64 run, and at
 # 10^7 below it, 0.00133 against 0.00175)
 NEU_COARSE, NEU_LEVELS, NEU_GROUPS = 32, 4, (1, 2, 3, 4)
+# (mpm-fsi-sinking-64 takes 3 steps for the whole run's clock, 5 before
+# the multi-device phases joined it; markers-256 cannot take fewer steps a
+# revolution: at 200 the 4-hop walk loses a third of the markers)
 MARKERS_N, MARKERS_COUNT, MARKERS_STEPS = 256, 1 << 20, 400
 MARKERS_SUBSET, MAGNETIC_COUNT = 4096, 100_000
 MPM_N, MPM_STEPS, MPM_DT, MPM_G = 128, 500, 2.5e-4, -1.0
 MPM_REF_STEPS, MPM_REF_TOL = 50, 1e-10
-MPM_FSI_N, MPM_FSI_STEPS, MPM_FSI_NEWTON = 64, 5, 8
+MPM_FSI_N, MPM_FSI_STEPS, MPM_FSI_NEWTON = 64, 3, 8
 PROJ_SRC, PROJ_DST, PROJ_SHIFT = 256, 200, (0.1, -0.05)
 UQ_N, UQ_NQ, UQ_DEG = 128, 7, 4
 UQ_SAMPLES, UQ_SG_LEVELS = 10 ** 7, (5, 6, 7)
@@ -4138,6 +4193,588 @@ def run_slice9() -> dict:
             "projection": phase_projection(), "uq": phase_uq()}
 
 
+# slice 10: the multi-device layer on one card.  DIST_RANKS processes share
+# the card over gloo (NCCL refuses two ranks on one device); every rank runs
+# kernel B1 (halo SpMV, sharded step) or B2 (sharded patch matvec) on its
+# own block.  dist_partition: the gambit-poisson-256 mesh (unit_box((32,32))
+# refined to 256x256, Q2, 263,169 dofs) cut 4 ways; dist_halo: the
+# cavity-128 Navier-Stokes Jacobian (181,250 rows) in float32 and float64
+# and the gambit-poisson-256 operator in float64, B1 per rank through
+# all_to_all (overlapped and not) and the ELL gather;
+# dist_step: Q2 Poisson at 256x256 with a DIST_STEP_LEVELS-level Galerkin
+# V-cycle, outer CG to 1e-8 in float64 (the JAX package's
+# tests/test_distributed.py step at full size), and the two-level cavity
+# step of dryrun_multichip at cavity-64 (DIST_DRYRUN_COARSE coarse cells);
+# dist_patch: poisson-patch-1M's operator over 4 slabs; dist_markers:
+# markers-256's 2^20 markers for DIST_MARKERS_STEPS RK4 steps;
+# nccl_world1: the halo SpMV and the sharded step at world size 1 on NCCL
+# (no multi-card test: one rank, one card)
+DIST_RANKS, DIST_REPS = 4, 20
+# seconds a launch of ranks may take (set-up included) before it fails
+DIST_TIMEOUT = 420
+DIST_HALO_CASES = (("cavity", 128, "f32"), ("cavity", 128, "f64"),
+                   ("poisson", 256, "f64"))
+DIST_VARIANTS = (("bell", "auto", True), ("bell", "all_to_all", False),
+                 ("ell", "auto", True))
+DIST_STEP_LEVELS, DIST_DRYRUN_COARSE = 4, 32
+# (RK4 steps of 2 pi / 400, a tenth of a revolution)
+DIST_MARKERS_STEPS, DIST_MARKERS_DT = 40, 2 * np.pi / 400
+# patch3d: Q2 Poisson, -Lap u = 3 pi^2 sin sin sin, operator="patch" on
+# PatchedMultiLevelMesh(unit_box((6,6,6), "hex"), PATCH3D_LEVELS): finest
+# 48^3 elements, 97^3 = 912,673 dofs, float32
+PATCH3D_COARSE, PATCH3D_LEVELS = 6, 4
+# the level (24^3 elements, 117,649 dofs) whose patch operator is held
+# against B1 on the ELL operator of the same matrix
+PATCH3D_ELL_LEVEL = 2
+
+
+def _dist_step_configs() -> list:
+    return [dict(case="poisson", n=NEU_COARSE << (NEU_LEVELS - 1),
+                 levels=DIST_STEP_LEVELS, outer="cg", rtol=1e-8,
+                 restart=30, max_outer=20, local_format="bell", timed=True),
+            dict(case="dryrun", n=DIST_DRYRUN_COARSE, outer="gmres",
+                 rtol=1e-6, restart=20, max_outer=3, local_format="bell",
+                 timed=True)]
+
+
+def phase_dist_partition() -> dict:
+    """RCB, graph and contiguous partitions of the gambit-poisson-256 mesh
+    into DIST_RANKS: edge cut, ghosts per rank and the halo plan's m and
+    offsets of the Q2 operator, native and numpy seconds."""
+    from femus_tpu_torch import native
+    from femus_tpu_torch.algebra.sparse import pad_pattern
+    from femus_tpu_torch.assembly.engine import Assembler, Unknown
+    from femus_tpu_torch.mesh.generation import unit_box
+    from femus_tpu_torch.mesh.mesh import elem_neighbors
+    from femus_tpu_torch.mesh.multilevel import MultiLevelMesh
+    from femus_tpu_torch.parallel.halo import build_halo_plan
+    from femus_tpu_torch.parallel.partition import partition_mesh
+
+    native.build()
+    if native.impl() != "native":
+        raise AssertionError("dist_partition: the native library is absent")
+    mesh = MultiLevelMesh(unit_box((NEU_COARSE, NEU_COARSE)),
+                          NEU_LEVELS).levels[-1]
+    cent = mesh.coords[mesh.conn[:, :4]].mean(axis=1)
+    nbr = elem_neighbors(mesh)
+    rep = {"phase": "dist_partition", "n_elems": int(mesh.n_elems),
+           "ranks": DIST_RANKS}
+    for method in ("rcb", "graph", "contiguous"):
+        t0 = time.perf_counter()
+        out, info = partition_mesh(mesh, DIST_RANKS, method)
+        native_s = time.perf_counter() - t0
+        # the partitioner alone, native and numpy (the contiguous split
+        # needs neither; the numpy region growing has no refinement sweeps)
+        same = native_s1 = numpy_s = None
+        if method != "contiguous":
+            fn, arg = ((native.rcb_partition, cent) if method == "rcb"
+                       else (native.greedy_graph_partition, nbr))
+            fn_np = (native.rcb_partition_numpy if method == "rcb"
+                     else native.greedy_graph_partition_numpy)
+            t0 = time.perf_counter()
+            part = fn(arg, DIST_RANKS)
+            native_s1 = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            part_np = fn_np(arg, DIST_RANKS)
+            numpy_s = time.perf_counter() - t0
+            if method == "rcb":
+                same = bool(np.array_equal(part, part_np))
+        a = Assembler(out, [Unknown("u")], device="cpu")
+        n = a.n_dofs
+        n_pad = -(-n // DIST_RANKS) * DIST_RANKS
+        plan = build_halo_plan(pad_pattern(a.pattern, n_pad, n_pad),
+                               DIST_RANKS)
+        rep[method] = {
+            "impl": info.impl, "edge_cut": info.edge_cut,
+            "elems_per_rank": np.diff(info.elem_offsets).tolist(),
+            "ghosts_per_rank": [int(plan.ghost_globals(r)[1].sum())
+                                for r in range(DIST_RANKS)],
+            "m": plan.m, "offsets": list(plan.offs),
+            "partition_mesh_s": native_s,
+            "native_partitioner_s": native_s1,
+            "numpy_partitioner_s": numpy_s, "numpy_rcb_equal": same,
+            "n_dofs": n}
+    emit(rep)
+    if any(rep[m]["impl"] != "native" for m in ("rcb", "graph")):
+        raise AssertionError("dist_partition: not the native partitioner")
+    return rep
+
+
+def _global_b1(case: str, n: int, dt):
+    """(n, x, y, |A||x|) of the global B1 product of a halo case on the
+    card: x as the ranks draw it (rng(0) over the padded rows)."""
+    from femus_tpu_torch.algebra import bell
+    from femus_tpu_torch.parallel import cases
+    asm, data = cases._operator(case, n, "cuda", cases.DTYPES[dt])
+    nr = asm.n_dofs
+    n_pad = -(-nr // DIST_RANKS) * DIST_RANKS
+    x = np.random.default_rng(0).standard_normal(n_pad)
+    dev, _ = bell.bell_device_plan(asm.pattern, "identity", "cuda")
+    op = bell.relayout_ell(dev, data, device="cuda")
+    xt = torch.as_tensor(x[:nr], dtype=data.dtype, device="cuda")
+    y = bell.spmv_bell_cuda(op, xt)
+    scale = bell.spmv_bell_cuda(bell.BellOp(op.vals.abs(), op.dev), xt.abs())
+    return nr, x, y.cpu().numpy(), float(scale.abs().max())
+
+
+def phase_dist_halo() -> dict:
+    """The halo SpMV over DIST_RANKS ranks on the card (B1 per rank, and
+    the ELL gather), held against the global B1 product: float32 within
+    1e-5 max(|A||x|), float64 within 1e-12."""
+    from femus_tpu_torch.parallel import cases
+    from femus_tpu_torch.parallel.ranks import choose_backend, launch
+
+    t0 = time.perf_counter()
+    res = launch(cases.halo_rank, DIST_RANKS,
+                 (DIST_HALO_CASES, DIST_VARIANTS, 0, DIST_REPS),
+                 device="cuda", timeout=DIST_TIMEOUT)
+    wall = time.perf_counter() - t0
+    out = {"phase": "dist_halo", **choose_backend(DIST_RANKS, "cuda"),
+           "seconds": wall, "cases": {}}
+    ok, launches = True, 0
+    for case, n, dt in DIST_HALO_CASES:
+        key = f"{case}-{n}-{dt}"
+        per = [r[key] for r in res]
+        nr, x, y_glob, scale = _global_b1(case, n, dt)
+        tol = (1e-12 if dt == "f64" else 1e-5) * scale
+        rows = {}
+        for variant in per[0]["y"]:
+            y = np.concatenate([p["y"][variant] for p in per])
+            err = float(np.abs(y[:nr] - y_glob).max())
+            pad_ok = bool(np.array_equal(y[nr:], x[nr:].astype(y.dtype)))
+            rows[variant] = {
+                "max_abs_err": err, "tol": tol,
+                "ok": err <= tol and pad_ok,
+                "b1_launches_per_rank": [p["launches"][variant]
+                                         for p in per],
+                "transport": per[0]["note"][variant]["transport"],
+                "rule": per[0]["note"][variant]["rule"],
+                "spmv_ms_per_rank": [p["ms"][variant]["spmv"] for p in per],
+                "exchange_ms_per_rank": [p["ms"][variant]["exchange"]
+                                         for p in per]}
+            ok &= rows[variant]["ok"]
+            launches += sum(p["launches"][variant] for p in per)
+        blocks = [p["blocks"] for p in per]
+        for b in blocks:
+            for part in ("interior", "boundary"):
+                if part in b:
+                    ok &= b[part]["max_abs_err"] <= \
+                        (1e-12 if dt == "f64" else 1e-5) * b[part]["scale"]
+            # the CSR yardsticks compute the same products
+            ok &= max(b["library_err"], b["library_interior_err"]) <= tol
+        out["cases"][key] = {
+            "n": nr, "nnz": per[0]["nnz"], "m": per[0]["m"],
+            "offsets": per[0]["offsets"], "scale": scale,
+            "setup_s_per_rank": [p["setup_s"] for p in per],
+            "variants": rows, "blocks_per_rank": blocks}
+    out["b1_launches"] = launches
+    emit(out)
+    if not ok:
+        raise AssertionError("dist_halo: a rank's SpMV or B1 block disagrees")
+    if launches <= 0:
+        raise AssertionError("dist_halo: no B1 launch on the ranks")
+    return out
+
+
+def _b1_block_row(blocks: list, dt: str) -> dict:
+    """The kernel-table row of B1 on the ranks' blocks, like with like: the
+    rank whose whole local product (interior and boundary launches, the
+    boundary rows added in) took longest, against one torch.sparse CSR
+    product of the same rank's whole block; its bound from the bytes both
+    plans must move (values and int32 columns of their slots, slice
+    pointers and row order, the extended x read once and y written
+    once).  The interior launch alone beside the CSR of the own-column
+    entries rides along."""
+    bl = max(blocks, key=lambda r: r["product_ms"])
+    parts = [bl[p] for p in ("interior", "boundary") if p in bl]
+    i = bl["interior"]
+    nbytes = (sum(b["slots"] * (b["value_bytes"] + 4)
+                  + (b["n_slices"] + 1) * 4 + b["n_slices"] * 32 * 4
+                  for b in parts)
+              + (i["n_cols"] + bl["ghosts"] + i["n"]) * i["x_bytes"])
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * sum(b["slots"] for b in parts) / (
+        F64_FLOPS_PER_S if dt == "f64" else F32_FLOPS_PER_S) * 1e3
+    return {"max_abs_err": max(max(b[p]["max_abs_err"] for p in
+                                   ("interior", "boundary") if p in b)
+                               for b in blocks),
+            "ms": bl["product_ms"], "plain_ms": bl["product_plain_ms"],
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": bl["library_ms"], "rows": i["n"],
+            "nnz": sum(b["nnz"] for b in parts),
+            "interior_ms": i["ms"],
+            "interior_library_ms": bl["library_interior_ms"],
+            "boundary_ms": bl["boundary"]["ms"] if "boundary" in bl
+            else None}
+
+
+def phase_dist_step() -> dict:
+    """make_sharded_step on DIST_RANKS ranks against the same step at
+    world size 1 (NCCL, one card): Poisson MG-CG equal iterations and
+    solutions within 1e-9; the dryrun cavity step within 1e-8."""
+    from femus_tpu_torch.parallel import cases
+    from femus_tpu_torch.parallel.ranks import launch
+
+    cfgs = _dist_step_configs()
+    t0 = time.perf_counter()
+    r4 = launch(cases.step_rank, DIST_RANKS, (cfgs,), device="cuda",
+                timeout=DIST_TIMEOUT)
+    t1 = time.perf_counter()
+    # world size 1 (NCCL on the one card): the same steps, and the halo
+    # SpMV of phase nccl_world1 in the same launch
+    case = ("poisson", NEU_COARSE << (NEU_LEVELS - 1), "f64")
+    (r1, halo1), = launch(cases.calls_rank, 1, ([
+        ("step_rank", (cfgs,)),
+        ("halo_rank", ([case], [("bell", "auto", True)], 0, 0))],),
+        device="cuda", timeout=DIST_TIMEOUT)
+    r1 = [r1]
+    t2 = time.perf_counter()
+    rep = {"phase": "dist_step", "ranks": DIST_RANKS, "share_card": True,
+           "launch_s": {"4": t1 - t0, "1": t2 - t1}}
+    ok = True
+    launches = 0
+    for i, (cfg, tol) in enumerate(zip(cfgs, (1e-9, 1e-8))):
+        per4 = [r[i] for r in r4]
+        one = r1[0][i]
+        u4 = cases.join_rows(per4)
+        u1 = one["u"][:one["n"]]
+        diff = float(np.abs(u4 - u1).max())
+        iters = per4[0]["iters"]
+        row = {"case": cfg["case"], "n_dofs": one["n"],
+               "iters_4": [p["iters"] for p in per4], "iters_1": one["iters"],
+               "residual_4": per4[0]["residual"],
+               "residual_1": one["residual"],
+               "converged": per4[0]["converged"], "max_diff": diff,
+               "tol": tol,
+               # the production step (overlapped halo SpMV, no timing
+               # sections), cold then warm
+               "step_s_4": [max(p["step_s"][k] for p in per4)
+                            for k in range(len(one["step_s"]))],
+               "step_s_1": one["step_s"],
+               "setup_s_4": max(p["setup_s"] for p in per4),
+               "setup_s_1": one["setup_s"],
+               # the instrumented step: every section synchronises the
+               # card and the exchange runs before the local product
+               "timed_step_s_4": max(p["timed_step_s"] for p in per4),
+               "timed_step_s_1": one["timed_step_s"],
+               "timed_max_diff": max(p["timed_diff"] for p in per4 + [one]),
+               "timed_per_iteration_s_4": {
+                   k: max(p["clock"][k] for p in per4) / max(iters, 1)
+                   for k in per4[0]["clock"]},
+               "timed_per_iteration_s_1": {
+                   k: one["clock"][k] / max(iters, 1) for k in one["clock"]},
+               "b1_launches_per_rank": [p["b1_launches"] for p in per4],
+               "note_4": per4[0]["note"], "note_1": one["note"]}
+        rep[cfg["case"]] = row
+        launches += sum(row["b1_launches_per_rank"])
+        ok &= (diff <= tol and row["timed_max_diff"] <= tol
+               and len(set(row["iters_4"])) == 1)
+        if cfg["case"] == "poisson":
+            ok &= iters == one["iters"] and row["converged"]
+    rep["b1_launches"] = launches
+    emit(rep)
+    if not ok:
+        raise AssertionError("dist_step: 4 ranks and 1 rank disagree")
+    if launches <= 0 or any(v <= 0 for v in
+                            rep["poisson"]["b1_launches_per_rank"]):
+        raise AssertionError("dist_step: a rank launched no B1")
+    return {**rep, "world1": r1, "halo1": (case, halo1)}
+
+
+def phase_dist_patch() -> dict:
+    """poisson-patch-1M's finest operator (float32) over DIST_RANKS slabs
+    of patches, B2 on each slab, held against the global B2 matvec at
+    B2's budget (1e-5 max(|A||x|))."""
+    from femus_tpu_torch.algebra import patchstencil as ps
+    from femus_tpu_torch.assembly.bc import generate_bdc
+    from femus_tpu_torch.assembly.engine import Assembler, Unknown
+    from femus_tpu_torch.assembly.forms import poisson
+    from femus_tpu_torch.mesh.generation import unit_box
+    from femus_tpu_torch.mesh.patches import refine_patched
+    from femus_tpu_torch.parallel import cases
+    from femus_tpu_torch.parallel import patch_spmd as pspmd
+    from femus_tpu_torch.parallel.ranks import launch
+
+    t0 = time.perf_counter()
+    mesh, plan = refine_patched(unit_box((PATCH_COARSE, PATCH_COARSE)),
+                                PATCH_LEVELS - 1)
+    a = Assembler(mesh, [Unknown("u")], device="cuda", dtype=torch.float32)
+    a.set_volume_form(poisson("u"))
+    generate_bdc(a, lambda var, x, grp, t: (True, 0.0))
+    a.set_patch_layout(plan)
+    _, data = a.make_assemble_fn()(torch.zeros(a.n_dofs, device="cuda"))
+    op = a.op_with(data)
+    x = torch.randn(op.n_rows, generator=torch.Generator().manual_seed(0)
+                    ).cuda()
+    y_glob = op.matvec(x)
+    scale = float(ps.spmv_patch_cuda(
+        ps.PatchStencilOp(op.wt.abs(), op.routing, op.meta), x.abs()).max())
+    bounds = pspmd.slab_bounds(op.meta[1], DIST_RANKS)
+    setup_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        cases.save_parts(tmp, [pspmd.patch_slab(op, lo, hi)
+                               for lo, hi in bounds], x=x.cpu().numpy())
+        t0 = time.perf_counter()
+        res = launch(cases.patch_rank, DIST_RANKS, (tmp, DIST_REPS),
+                     device="cuda", timeout=DIST_TIMEOUT)
+        wall = time.perf_counter() - t0
+    E, P = op.meta[3], op.meta[1]
+    y_int = np.concatenate([r["y_int"] for r in res], axis=2)
+    y = np.concatenate([y_int.reshape(-1), res[0]["y_e"].reshape(-1),
+                        res[0]["y_v"]])
+    err = float(np.abs(y - y_glob.cpu().numpy()).max())
+    slabs = [r["slab"] for r in res]
+    rep = {"phase": "dist_patch", "ranks": DIST_RANKS, "share_card": True,
+           "n": op.n_rows, "patches": P, "slabs": bounds,
+           "setup_s": setup_s, "seconds": wall, "max_abs_err": err,
+           "tol": 1e-5 * scale,
+           "b2_launches_per_rank": [r["launches"] for r in res],
+           "ms_per_rank": [r["ms"] for r in res], "slab_per_rank": slabs,
+           "skeleton_values": int(res[0]["y_e"].size + res[0]["y_v"].size)}
+    emit(rep)
+    if not (err <= 1e-5 * scale and all(
+            max(s["max_abs_err"], s["library_err"]) <= 1e-5 * s["scale"]
+            for s in slabs)):
+        raise AssertionError("dist_patch: the sharded matvec disagrees")
+    if any(r["launches"] <= 0 for r in res):
+        raise AssertionError("dist_patch: a rank launched no B2")
+    # the kernel-table row: the slowest slab, its bound from its own work
+    b = max(slabs, key=lambda r: r["ms"])
+    H, Pl, Ppl, _, ne_, nv_, nl = b["meta"]
+    nbytes, flops = patch_kernel_work(H, Pl, b["value_bytes"], nl,
+                                      b["table_bytes"] // 4)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOPS_PER_S * 1e3
+    return {**rep, "row": {
+        "max_abs_err": max(s["max_abs_err"] for s in slabs), "ms": b["ms"],
+        "plain_ms": b["plain_ms"], "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": b["library_ms"], "library_nnz": b["nnz"]},
+        "launches": sum(r["launches"] for r in res)}
+
+
+def phase_dist_markers() -> dict:
+    """markers-256's cloud over DIST_RANKS ranks: DIST_MARKERS_STEPS RK4
+    steps (1/10 revolution) with all_to_all migration, against the same
+    steps of the whole cloud on one rank: elements equal, positions to
+    1e-12, nothing dropped."""
+    from femus_tpu_torch.mesh.generation import unit_box
+    from femus_tpu_torch.parallel import cases
+    from femus_tpu_torch.parallel.ranks import launch
+    from femus_tpu_torch.particles.markers import (MarkerCloud, locate,
+                                                   make_advect_fn)
+    from femus_tpu_torch.particles.sharded import collect
+
+    mesh = unit_box((MARKERS_N, MARKERS_N))
+    pts = disk_markers(MARKERS_COUNT)
+    cloud = MarkerCloud(mesh, pts.copy(), np.zeros(len(pts), np.int64))
+    locate(cloud, device="cuda")
+    dt = DIST_MARKERS_DT
+    run = dict(steps=DIST_MARKERS_STEPS, dt=dt, order=4)
+    with tempfile.TemporaryDirectory() as tmp:
+        np.savez(os.path.join(tmp, "cloud.npz"), x=cloud.x, elem=cloud.elem)
+        t0 = time.perf_counter()
+        res = launch(cases.markers_rank, DIST_RANKS, (tmp, MARKERS_N, [run]),
+                     device="cuda", timeout=DIST_TIMEOUT)
+        wall = time.perf_counter() - t0
+    res = [r[0] for r in res]
+    step = make_advect_fn(mesh, ["biquadratic"] * 2, order=4,
+                          dtype=torch.float64, device="cuda")
+    vel = tuple(torch.as_tensor(v, dtype=torch.float64, device="cuda")
+                for v in cases.rotation_field(mesh))
+    x = torch.as_tensor(cloud.x, dtype=torch.float64, device="cuda")
+    e = torch.as_tensor(cloud.elem, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(DIST_MARKERS_STEPS):
+        x, e = step(x, e, vel, dt)
+    torch.cuda.synchronize()
+    one_s = (time.perf_counter() - t0) / DIST_MARKERS_STEPS
+    x1, e1 = x.cpu().numpy(), e.cpu().numpy()
+    tx, te = collect(np.concatenate([r["x"] for r in res]),
+                     np.concatenate([r["elem"] for r in res]))
+    o1 = np.lexsort((x1[:, 1], x1[:, 0], e1))
+    o4 = np.lexsort((tx[:, 1], tx[:, 0], te))
+    same_n = len(te) == len(e1)
+    elem_eq = same_n and bool(np.array_equal(te[o4], e1[o1]))
+    pos_err = float(np.abs(tx[o4] - x1[o1]).max()) if same_n else None
+    rep = {"phase": "dist_markers", "ranks": DIST_RANKS, "share_card": True,
+           "markers": int(len(pts)), "steps": DIST_MARKERS_STEPS,
+           "capacity": res[0]["capacity"],
+           "cap_migrate": res[0]["cap_migrate"],
+           "migrations_per_step": res[0]["migrated"],
+           "dropped_per_step": res[0]["dropped"], "seconds": wall,
+           "step_s_per_rank": [r["step_s"] for r in res],
+           "one_rank_step_s": one_s, "elements_equal": elem_eq,
+           "max_position_err": pos_err}
+    emit(rep)
+    if not (elem_eq and pos_err <= 1e-12 and sum(rep["dropped_per_step"]) == 0
+            and sum(rep["migrations_per_step"]) > 0):
+        raise AssertionError("dist_markers: the sharded cloud differs")
+    return rep
+
+
+def phase_nccl_world1(step: dict) -> dict:
+    """The dist_halo and dist_step code at world size 1 on NCCL (run in
+    dist_step's world-size-1 launch): the halo SpMV (B1, no ghosts)
+    against the global B1, and the sharded steps.  One rank on one card:
+    it shows that the NCCL route initialises and reduces; it is no
+    multi-card test."""
+    case, halo1 = step["halo1"]
+    per = halo1[f"{case[0]}-{case[1]}-{case[2]}"]
+    nr, x, y_glob, scale = _global_b1(*case)
+    y = per["y"]["bell/auto/overlap"]
+    err = float(np.abs(y[:nr] - y_glob).max())
+    one = step["world1"][0]
+    rep = {"phase": "nccl_world1", "multi_card_test": False,
+           "world_size": 1, "backend": "nccl",
+           "rule": "every rank has a card of its own (one rank, one card)",
+           "halo_max_abs_err": err, "halo_tol": 1e-12 * scale,
+           "halo_transport": per["note"]["bell/auto/overlap"]["transport"],
+           "b1_launches": per["launches"]["bell/auto/overlap"],
+           "step_poisson_iters": one[0]["iters"],
+           "step_dryrun_iters": one[1]["iters"],
+           "step_b1_launches": one[0]["b1_launches"] + one[1]["b1_launches"]}
+    emit(rep)
+    if not (err <= 1e-12 * scale and rep["b1_launches"] > 0):
+        raise AssertionError("nccl_world1: the world-1 halo SpMV disagrees")
+    return rep
+
+
+def patch3d_system(coarse: int, levels: int, device, dtype, rtol: float):
+    """Q2 Poisson with the sin sin sin solution, operator="patch" and
+    rediscretized coarse levels on a hex patch hierarchy."""
+    from femus_tpu_torch.assembly.forms import poisson
+    from femus_tpu_torch.mesh.generation import unit_box
+    from femus_tpu_torch.mesh.multilevel import PatchedMultiLevelMesh
+    from femus_tpu_torch.systems.problem import MultiLevelProblem
+    from femus_tpu_torch.systems.solution import MultiLevelSolution
+    from femus_tpu_torch.systems.system import LinearImplicitSystem
+
+    pi = np.pi
+    ml_mesh = PatchedMultiLevelMesh(unit_box((coarse,) * 3, "hex"), levels)
+    ml_sol = MultiLevelSolution(ml_mesh)
+    ml_sol.add_solution("u", "biquadratic")
+    ml_sol.initialize("u")
+    ml_sol.attach_bc(lambda var, x, grp, t: (True, 0.0))
+    ml_sol.generate_bdc("u")
+    prob = MultiLevelProblem(ml_mesh, ml_sol, quad_order="fifth")
+    sys_ = prob.add_system(LinearImplicitSystem, "patch3d")
+    sys_.add_unknown("u")
+    sys_.set_assembly(poisson("u", rhs=lambda x: 3 * pi ** 2
+                              * torch.sin(pi * x[:, 0])
+                              * torch.sin(pi * x[:, 1])
+                              * torch.sin(pi * x[:, 2])))
+    cfg = sys_.config
+    cfg.operator, cfg.coarse_op = "patch", "rediscretize"
+    cfg.smoother, cfg.mg_type, cfg.rtol = "chebyshev", "V", rtol
+    sys_.init(device=device, dtype=dtype)
+    return sys_, ml_mesh, ml_sol
+
+
+def phase_patch3d() -> dict:
+    """patch3d: the 3-D patch operator's matvec against B1 on the ELL
+    operator of the same matrix at the 117,649-dof level (1e-5
+    relative), the patch solve on the card, and a small card-against-host
+    reference."""
+    from femus_tpu_torch.algebra import bell
+    from femus_tpu_torch.assembly.bc import generate_bdc
+    from femus_tpu_torch.assembly.engine import Assembler, Unknown
+    from femus_tpu_torch.assembly.forms import poisson
+    from femus_tpu_torch.systems.system import launch_counts
+
+    t0 = time.perf_counter()
+    sys_, ml_mesh, ml_sol = patch3d_system(PATCH3D_COARSE, PATCH3D_LEVELS,
+                                           "cuda", torch.float32, 1e-6)
+    setup_s = time.perf_counter() - t0
+    a = sys_.assemblers[-1]
+    _, wt = a.make_assemble_fn()(torch.zeros(a.n_dofs, device="cuda"))
+    op3 = a.op_with(wt)
+    x = torch.randn(a.n_dofs, generator=torch.Generator().manual_seed(0)
+                    ).cuda()
+    patch_ms = time_ms(lambda: op3 @ x, reps=10, warm=2)
+    del wt
+    # the same matrix on the ELL layout through B1, at the level below
+    # the finest (PATCH3D_ELL_LEVEL): the finest level's ELL set-up took
+    # 436 s on the host of an H100 machine
+    a2 = sys_.assemblers[PATCH3D_ELL_LEVEL]
+    zero = torch.zeros(a2.n_dofs, device="cuda")
+    _, wt2 = a2.make_assemble_fn()(zero)
+    op2 = a2.op_with(wt2)
+    x2 = x[:a2.n_dofs].contiguous()
+    y3 = op2 @ x2
+    t0 = time.perf_counter()
+    e = Assembler(ml_mesh.levels[PATCH3D_ELL_LEVEL], [Unknown("u")],
+                  device="cuda", dtype=torch.float32)
+    e.set_volume_form(poisson("u"))
+    generate_bdc(e, lambda var, x, grp, t: (True, 0.0))
+    _, data = e.make_assemble_fn()(zero)
+    dev = bell.build_sell_plan(e.pattern, "identity").to_device("cuda")
+    ell_s = time.perf_counter() - t0
+    bop = bell.relayout_ell(dev, data, device="cuda")
+    y1 = bell.spmv_bell_cuda(bop, x2)
+    scale = float(bell.spmv_bell_cuda(bell.BellOp(bop.vals.abs(), bop.dev),
+                                      x2.abs()).max())
+    err = float((y3 - y1).abs().max())
+    b1_ms = time_ms(lambda: bell.spmv_bell_cuda(bop, x2), reps=10, warm=2)
+    nnz = int(e.pattern.nnz)
+    del e, data, bop, dev, wt2, op2
+    reset_launches()
+    t0 = time.perf_counter()
+    info = sys_.solve()
+    torch.cuda.synchronize()
+    solve_s = time.perf_counter() - t0
+    launches = launch_counts()
+    xyz = ml_mesh.levels[-1].node_coords_of("biquadratic")
+    exact = np.prod(np.sin(np.pi * xyz), axis=1)
+    nodal = float(np.abs(ml_sol.sol[-1]["u"] - exact).max())
+    # small reference: the card's float32 solve against the host's float64
+    fields = {}
+    for device, dtype in (("cuda", torch.float32), ("cpu", torch.float64)):
+        s_, _, sol_ = patch3d_system(2, 3, device, dtype, 1e-8)
+        s_.solve()
+        fields[device] = sol_.sol[-1]["u"].copy()
+    ref = float(np.linalg.norm(fields["cuda"] - fields["cpu"])
+                / np.linalg.norm(fields["cpu"]))
+    rep = {"phase": "patch3d", "n_dofs": [al.n_dofs for al in
+                                          sys_.assemblers],
+           "H": op3.meta[0], "patches": op3.meta[1], "Pp": op3.meta[2],
+           "weights_bytes": op3.wt.numel() * op3.wt.element_size(),
+           "setup_s": setup_s, "ell_level_n_dofs": int(x2.numel()),
+           "ell_setup_s": ell_s, "ell_nnz": nnz,
+           "matvec_vs_b1_err": err, "scale": scale,
+           "patch_matvec_ms": patch_ms, "ell_level_b1_ms": b1_ms,
+           "gmres_iters": info["iters"], "converged": info["converged"],
+           "residual": info["residual"], "target": info["target"],
+           "solve_s": solve_s, "max_nodal_err": nodal,
+           "kernel_launches": launches, "card_vs_host": ref,
+           "routing": sys_.solver_info()["routing"]}
+    emit(rep)
+    if not err <= 1e-5 * scale:
+        raise AssertionError("patch3d: the 3-D patch matvec and B1 differ")
+    if not (info["converged"] and nodal < PATCH_ERR_MAX and ref < 1e-4):
+        raise AssertionError(f"patch3d: solve or reference failed ({rep})")
+    return rep
+
+
+def run_slice10() -> dict:
+    """The slice-10 phases in order (the CUDA and native libraries are
+    built before any rank starts: ranks building into build/ at once would
+    race on one .so)."""
+    from femus_tpu_torch import native
+    from femus_tpu_torch._cuda_build import KERNEL_SOURCES, build
+    build(KERNEL_SOURCES)
+    native.build()
+    out = {"partition": phase_dist_partition(), "halo": phase_dist_halo(),
+           "step": phase_dist_step()}
+    out["patch"] = phase_dist_patch()
+    out["markers"] = phase_dist_markers()
+    out["nccl"] = phase_nccl_world1(out["step"])
+    out["patch3d"] = phase_patch3d()
+    return out
+
+
 def card_line() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4229,6 +4866,9 @@ def main() -> int:
         # Poisson solve on it), Lagrangian markers, explicit MPM and
         # MPM-FSI, mesh-to-mesh projection and UQ
         s9 = run_slice9()
+        # slice 10: the multi-device layer (4 ranks sharing the card, B1
+        # and B2 on every rank) and the 3-D patch operator
+        s10 = run_slice10()
         # slice 5: monolithic FSI on the BELL-frame operator, steady and
         # transient
         fsys, fsol, fsetup = phase_fsi_setup()
@@ -4305,14 +4945,29 @@ def main() -> int:
         **{"gambit_" + key: s9["gambit"][key]
            for key in KERNEL_KEYS + ("fill",)},
         **{"uq_" + key: s9["uq"][key]
-           for key in KERNEL_KEYS + ("fill",)}}, {
+           for key in KERNEL_KEYS + ("fill",)},
+        # and on the ranks' blocks of the multi-device layer: the halo
+        # SpMV (dist_halo) and the sharded step (dist_step); the row is the
+        # slowest rank's whole local product (both B1 launches) of the
+        # cavity-128 Jacobian, float32, beside the CSR of the same block
+        "dist_halo_launches": s10["halo"]["b1_launches"],
+        "dist_step_launches": s10["step"]["b1_launches"],
+        "dist_values": "f32",
+        **{"dist_" + key: value for key, value in _b1_block_row(
+            s10["halo"]["cases"]["cavity-128-f32"]["blocks_per_rank"],
+            "f32").items()}}, {
         "name": "patch_stencil", "route": "cuda",
         "source": "femus_tpu_torch/algebra/csrc/patch_stencil.cu",
         "replaces": "femus_tpu/algebra/patchstencil.py:377",
         "launches": main2["kernel_launches"]["patch_stencil"],
         "max_abs_err": k2["max_abs_err"], "ms": k2["ms"],
         "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"],
-        "bound_by": k2["bound_by"], "library_ms": k2["library_ms"]}, {
+        "bound_by": k2["bound_by"], "library_ms": k2["library_ms"],
+        # and on the ranks' slabs of poisson-patch-1M (dist_patch): the
+        # slowest slab's row, beside one CSR product of the same slab
+        "dist_patch_launches": s10["patch"]["launches"],
+        **{"dist_patch_" + key: s10["patch"]["row"][key]
+           for key in KERNEL_KEYS}}, {
         "name": "dia_spmv", "route": "cuda",
         "source": "femus_tpu_torch/algebra/csrc/dia_spmv.cu",
         "replaces": "femus_tpu/algebra/dia.py:106",

@@ -297,6 +297,7 @@ class SellPlan:
                               #   each (slice, lane); -1 beyond the last row
     diag_slot: np.ndarray     # (n,) slot of each ORIGINAL row's diagonal
                               #   (``total``, the zero, for rows without one)
+    n_cols: int               # x entries (n, but for a rectangular block)
 
     @property
     def total(self) -> int:
@@ -329,7 +330,7 @@ class SellPlan:
                 t(self.diag_slot, torch.int64),
                 None if ident else t(self.perm, torch.int64),
                 None if ident else t(self.iperm, torch.int64),
-                self.n, self.n_slices, self.nnz, self.sigma)
+                self.n, self.n_slices, self.nnz, self.sigma, self.n_cols)
         return cache[device]
 
 
@@ -341,18 +342,43 @@ def build_sell_plan(pattern: EllPattern, perm=None,
     windows of ``sigma`` frame rows, a multiple of the slice height."""
     n = pattern.n_rows
     assert pattern.n_cols == n, "the frame matvec expects a square operator"
-    C, V = SELL_C, SELL_V
-    if sigma % C:
-        raise ValueError(f"sigma {sigma} is no multiple of {C}")
     if isinstance(perm, str) and perm == "identity":
         perm = np.arange(n, dtype=np.int64)
     elif perm is None:
         perm = rcm_permutation(pattern)
-    perm = np.asarray(perm, dtype=np.int64)
+    return sell_plan_from_csr(pattern.indptr, pattern.indices,
+                              pattern.csr_to_ell_slots(), n,
+                              n * pattern.width, perm, sigma)
+
+
+def sell_plan_from_csr(indptr, indices, src_slots, n_cols: int,
+                       zero_slot: int, perm=None,
+                       sigma: int = SELL_SIGMA) -> SellPlan:
+    """Sliced-ELL layout of a CSR structure whose value of CSR entry e sits
+    at ``src_slots[e]`` of a flat data array of ``zero_slot`` entries (the
+    relayout reads a zero appended there for padding).
+
+    ``perm`` (n,): frame ordering of a square operator, rows and columns
+    (:func:`build_sell_plan`).  ``perm=None``: rows and columns keep their
+    numbering, and the block may be rectangular (``n_cols`` x-entries for
+    ``len(indptr) - 1`` rows: the per-rank blocks of the halo SpMV,
+    ``parallel/halo.py``)."""
+    indptr = np.asarray(indptr, np.int64)
+    indices = np.asarray(indices, np.int64)
+    n = len(indptr) - 1
+    C, V = SELL_C, SELL_V
+    if sigma % C:
+        raise ValueError(f"sigma {sigma} is no multiple of {C}")
+    framed = perm is not None
+    if framed and n_cols != n:
+        raise ValueError("a frame ordering needs a square operator")
+    perm = (np.asarray(perm, dtype=np.int64) if framed
+            else np.arange(n, dtype=np.int64))
     iperm = np.empty_like(perm)
     iperm[perm] = np.arange(n)
+    nnz = len(indices)
 
-    counts = np.diff(pattern.indptr).astype(np.int64)
+    counts = np.diff(indptr)
     n_slices = -(-n // C)
     n_pad = n_slices * C
     lens = np.zeros(n_pad, np.int64)
@@ -369,29 +395,28 @@ def build_sell_plan(pattern: EllPattern, perm=None,
         raise ValueError("sliced-ELL slab beyond 2^31 slots")
     row_order = np.where(order < n, order, -1).astype(np.int32)
 
-    # padding slots: a zero value times the row's own x entry
+    # padding slots: a zero value times the row's own x entry (the last
+    # x entry for rows beyond a rectangular block's columns)
     slot_slice = np.repeat(np.arange(n_slices, dtype=np.int64),
                            groups * C * V)
     slot_lane = (np.arange(total, dtype=np.int64) // V) % C
-    cols = np.maximum(row_order[slot_slice * C + slot_lane], 0
-                      ).astype(np.int32)
+    cols = np.minimum(np.maximum(row_order[slot_slice * C + slot_lane], 0),
+                      max(n_cols - 1, 0)).astype(np.int32)
     del slot_slice, slot_lane
-    ell_size = n * pattern.width
-    src = np.full(total + 1, ell_size, np.int64)
+    src = np.full(total + 1, zero_slot, np.int64)
     # every nonzero: CSR entry e is column k of its row
     rows_o = np.repeat(np.arange(n, dtype=np.int64), counts)
-    k = np.arange(pattern.nnz, dtype=np.int64) - np.repeat(
-        pattern.indptr[:-1].astype(np.int64), counts)
+    k = np.arange(nnz, dtype=np.int64) - np.repeat(indptr[:-1], counts)
     pos = pos_of[iperm[rows_o]]
     slot = ((slice_ptr[pos // C] + k // V) * C + pos % C) * V + k % V
-    cols[slot] = iperm[pattern.indices]
-    src[slot] = pattern.csr_to_ell_slots()
+    cols[slot] = iperm[indices] if framed else indices
+    src[slot] = src_slots
     diag_slot = np.full(n, total, np.int64)
-    on_diag = pattern.indices == rows_o
+    on_diag = indices == rows_o
     diag_slot[rows_o[on_diag]] = slot[on_diag]
-    return SellPlan(n, int(pattern.nnz), int(sigma), n_slices, perm, iperm,
+    return SellPlan(n, int(nnz), int(sigma), n_slices, perm, iperm,
                     slice_ptr.astype(np.int32), cols, src, row_order,
-                    diag_slot)
+                    diag_slot, int(n_cols))
 
 
 @dataclasses.dataclass
@@ -409,6 +434,7 @@ class SellDev:
     n_slices: int
     nnz: int
     sigma: int
+    n_cols: int                  # x entries (n, but for a rectangular block)
 
     @property
     def total(self) -> int:
@@ -432,7 +458,7 @@ class BellOp:
 
     @property
     def n_cols(self) -> int:
-        return self.dev.n
+        return self.dev.n_cols
 
     # -- frame helpers: run whole solves in the permuted (banded) frame --
     def to_frame(self, x: torch.Tensor) -> torch.Tensor:
@@ -476,7 +502,7 @@ def _matvec_plain_frame(op: BellOp, xf: torch.Tensor) -> torch.Tensor:
     stored.index_add_(0, group_slice, prod.view(-1, C, V).sum(dim=-1))
     rows = p.row_order.long()
     real = rows >= 0
-    y = torch.zeros(p.n, dtype=acc, device=xf.device)
+    y = torch.zeros(p.n, dtype=acc, device=xf.device)   # n rows, any n_cols
     y[rows[real]] = stored.view(-1)[real]
     return y.to(xf.dtype)
 
@@ -486,8 +512,10 @@ _DTYPE_CODE = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2}
 
 def spmv_bell_cuda(op: BellOp, xf: torch.Tensor) -> torch.Tensor:
     """y_frame = A_frame x_frame through the CUDA kernel
-    (``csrc/sell_spmv.cu``), launched on the current stream.  Raises on
-    anything the kernel does not take; there is no fallback."""
+    (``csrc/sell_spmv.cu``), launched on the current stream: ``n`` rows of
+    y from ``n_cols`` entries of x (a square frame, or a rectangular
+    per-rank block of the halo SpMV).  Raises on anything the kernel does
+    not take; there is no fallback."""
     p = op.dev
     vals = op.vals
     if not (xf.is_cuda and vals.is_cuda and xf.device == vals.device
@@ -499,7 +527,7 @@ def spmv_bell_cuda(op: BellOp, xf: torch.Tensor) -> torch.Tensor:
     if vals.dtype not in _DTYPE_CODE:
         raise TypeError(f"spmv_bell_cuda: value dtype {vals.dtype} not "
                         "supported")
-    if xf.shape != (p.n,) or vals.shape != (p.total + 1,):
+    if xf.shape != (p.n_cols,) or vals.shape != (p.total + 1,):
         raise ValueError(f"spmv_bell_cuda: shapes x {tuple(xf.shape)}, "
                          f"values {tuple(vals.shape)} do not fit the plan")
     if not (xf.is_contiguous() and vals.is_contiguous()
@@ -507,7 +535,7 @@ def spmv_bell_cuda(op: BellOp, xf: torch.Tensor) -> torch.Tensor:
         raise ValueError("spmv_bell_cuda: x and values must be contiguous, "
                          "values and columns 16-byte aligned")
     fn = _sell_fn()
-    y = torch.empty_like(xf)
+    y = xf.new_empty(p.n)          # a rectangular block: n rows, n_cols x
     stream = torch.cuda.current_stream(xf.device).cuda_stream
     rc = fn(vals.data_ptr(), _DTYPE_CODE[vals.dtype], p.cols.data_ptr(),
             p.slice_ptr.data_ptr(), p.row_order.data_ptr(), xf.data_ptr(),

@@ -8,6 +8,11 @@ to decide whether to go on (GMRES: the new Hessenberg column, whose Givens
 rotation gives |g[j+1]|; CG: the residual norm).  That one synchronisation
 per iteration is accepted here; capturing whole cycles in CUDA graphs is
 later work.
+
+``reduce`` (every solver): the sum over the ranks of a row-partitioned
+vector's partial inner products (``parallel.ranks.RankGroup.sum``); each
+rank then passes its own rows of ``b`` and ``x0``, and ``A``/``M`` act on
+those rows.  ``None`` (one device) leaves every operation as it was.
 """
 from __future__ import annotations
 
@@ -18,6 +23,16 @@ import scipy.linalg
 import torch
 
 
+def _dot(a: torch.Tensor, b: torch.Tensor, reduce: Optional[Callable]):
+    return torch.dot(a, b) if reduce is None else reduce(torch.dot(a, b))
+
+
+def _norm(v: torch.Tensor, reduce: Optional[Callable]) -> torch.Tensor:
+    if reduce is None:
+        return torch.linalg.norm(v)
+    return torch.sqrt(reduce(torch.dot(v, v)))
+
+
 class SolveInfo(NamedTuple):
     iters: int
     residual: float       # final (preconditioned, for GMRES) residual norm
@@ -26,27 +41,28 @@ class SolveInfo(NamedTuple):
 
 
 def cg(A: Callable, b: torch.Tensor, x0=None, M: Optional[Callable] = None,
-       tol: float = 1e-10, atol: float = 0.0, maxiter: int = 1000):
+       tol: float = 1e-10, atol: float = 0.0, maxiter: int = 1000,
+       reduce: Optional[Callable] = None):
     """Preconditioned conjugate gradient.  Returns (x, SolveInfo)."""
     x = torch.zeros_like(b) if x0 is None else x0
     M = M or (lambda r: r)
     r = b - A(x)
     z = M(r)
     p = z
-    rz = torch.dot(r, z)
-    target = max(tol * float(torch.linalg.norm(b)), atol)
+    rz = _dot(r, z, reduce)
+    target = max(tol * float(_norm(b, reduce)), atol)
     k = 0
-    while k < maxiter and float(torch.linalg.norm(r)) > target:
+    while k < maxiter and float(_norm(r, reduce)) > target:
         Ap = A(p)
-        alpha = rz / torch.dot(p, Ap)
+        alpha = rz / _dot(p, Ap, reduce)
         x = x + alpha * p
         r = r - alpha * Ap
         z = M(r)
-        rz_new = torch.dot(r, z)
+        rz_new = _dot(r, z, reduce)
         p = z + (rz_new / rz) * p
         rz = rz_new
         k += 1
-    res = float(torch.linalg.norm(r))
+    res = float(_norm(r, reduce))
     return x, SolveInfo(k, res, bool(res <= target), target)
 
 
@@ -80,7 +96,7 @@ def _givens(a: float, b: float):
 
 def _gmres_core(opM: Callable, opA: Callable, b: torch.Tensor, x0, M,
                 tol: float, atol: float, restart: int, max_restarts: int,
-                flexible: bool):
+                flexible: bool, reduce: Optional[Callable] = None):
     """Shared GMRES core: Givens-rotated Hessenberg with per-iteration
     residual tracking and early exit at both loop levels, CGS2
     orthogonalization (two global reductions per iteration).
@@ -97,9 +113,9 @@ def _gmres_core(opM: Callable, opA: Callable, b: torch.Tensor, x0, M,
     def resid(x):
         return opM(b - opA(x))
 
-    target = max(tol * float(torch.linalg.norm(opM(b))), atol)
+    target = max(tol * float(_norm(opM(b), reduce)), atol)
     r = resid(x)
-    res = float(torch.linalg.norm(r))
+    res = float(_norm(r, reduce))
     total = 0
     V = torch.zeros((m + 1, n), dtype=b.dtype, device=b.device)
     Z = torch.zeros((m, n), dtype=b.dtype, device=b.device) if flexible \
@@ -109,7 +125,7 @@ def _gmres_core(opM: Callable, opA: Callable, b: torch.Tensor, x0, M,
             break
         if k > 0:
             r = resid(x)
-        beta = float(torch.linalg.norm(r))
+        beta = float(_norm(r, reduce))
         V[0] = r / (beta if beta != 0.0 else 1.0)
         H = np.zeros((m + 1, m))
         cs, sn = np.zeros(m), np.zeros(m)
@@ -125,10 +141,14 @@ def _gmres_core(opM: Callable, opA: Callable, b: torch.Tensor, x0, M,
             # CGS2 against the j+1 basis vectors so far
             Vj = V[:j + 1]
             h1 = Vj @ w
+            if reduce is not None:
+                h1 = reduce(h1)
             w = w - Vj.T @ h1
             h2 = Vj @ w
+            if reduce is not None:
+                h2 = reduce(h2)
             w = w - Vj.T @ h2
-            wnorm = torch.linalg.norm(w)
+            wnorm = _norm(w, reduce)
             V[j + 1] = w / torch.where(wnorm == 0, 1.0, wnorm)
             # the iteration's one host read: the new Hessenberg column
             col = np.zeros(m + 1)
@@ -152,32 +172,33 @@ def _gmres_core(opM: Callable, opA: Callable, b: torch.Tensor, x0, M,
                                                   device=b.device)
         total += j
         res = abs(g[j])
-    return x, SolveInfo(total, float(torch.linalg.norm(resid(x))),
+    return x, SolveInfo(total, float(_norm(resid(x), reduce)),
                         bool(res <= target), target)
 
 
 def gmres(A: Callable, b: torch.Tensor, x0=None, M: Optional[Callable] = None,
           tol: float = 1e-10, atol: float = 0.0, restart: int = 30,
-          max_restarts: int = 20):
+          max_restarts: int = 20, reduce: Optional[Callable] = None):
     """Restarted GMRES(m), left-preconditioned (solves M A x = M b), with
     early exit once |g[j]| <= max(tol*||M b||, atol).  ``converged``
     reports that estimate; ``residual`` is the true ||M (b - A x)|| at the
     returned x, to hold against ``target``."""
     M = M or (lambda r: r)
     return _gmres_core(M, A, b, x0, M, tol, atol, restart, max_restarts,
-                       flexible=False)
+                       flexible=False, reduce=reduce)
 
 
 def fgmres(A: Callable, b: torch.Tensor, x0=None,
            M: Optional[Callable] = None, tol: float = 1e-10,
-           atol: float = 0.0, restart: int = 30, max_restarts: int = 20):
+           atol: float = 0.0, restart: int = 30, max_restarts: int = 20,
+           reduce: Optional[Callable] = None):
     """Flexible GMRES (right preconditioning, Saad 1993): tolerates
     nonlinear/varying preconditioners (inner Krylov solves, K-cycles) by
     storing the preconditioned basis Z.  ``residual`` and ``target`` are
     unpreconditioned: ||b - A x|| against max(tol*||b||, atol)."""
     M = M or (lambda r: r)
     return _gmres_core(lambda r: r, A, b, x0, M, tol, atol, restart,
-                       max_restarts, flexible=True)
+                       max_restarts, flexible=True, reduce=reduce)
 
 
 def richardson(A: Callable, b: torch.Tensor, x0=None,

@@ -37,6 +37,12 @@ from ..algebra.patchstencil import (K, apply_dirichlet, build_patch_slots,
                                     build_patch_tables, dirichlet_masks,
                                     make_block_patch_op, make_patch_op,
                                     patch_meta, patch_routing)
+from ..algebra.patchstencil3d import (K3, PatchTables3D,
+                                      build_patch_slots_3d,
+                                      build_patch_tables_3d,
+                                      dirichlet_masks_3d, make_patch_op_3d,
+                                      patch_routing_3d)
+from ..mesh.patches3d import PatchPlan3D
 from ..algebra.sparse import (EllPattern, SparseOp, op_from_pattern,
                               pattern_from_pairs)
 from ..fe.geom import GEOMS
@@ -441,10 +447,12 @@ class Assembler:
 
     def set_patch_layout(self, plan) -> None:
         """Assemble the Jacobian into the PATCH-STENCIL layout instead of
-        ELL (the mesh must come from mesh.patches.refine_patched; stacked,
-        not interleaved, biquadratic unknowns).  ``op_with`` then returns a
-        PatchStencilOp (one unknown) or BlockPatchStencilOp with symmetric
-        Dirichlet elimination applied in stencil form."""
+        ELL (the mesh must come from mesh.patches.refine_patched, or
+        mesh.patches3d.refine_patched_hex with ``plan`` a PatchPlan3D;
+        stacked, not interleaved, biquadratic unknowns).  ``op_with`` then
+        returns a PatchStencilOp (one unknown), BlockPatchStencilOp or
+        PatchStencilOp3D (one unknown) with symmetric Dirichlet
+        elimination applied in stencil form."""
         if not all(u.family == "biquadratic" for u in self.unknowns):
             raise ValueError("patch layout: biquadratic unknowns only")
         if self.stack_perm is not None:
@@ -454,10 +462,18 @@ class Assembler:
             raise ValueError("patch matrix layout: face forms are not "
                              "supported")
         nv = len(self.unknowns)
-        tab = build_patch_tables(plan)
-        assert tab.n * nv == self.n_dofs, (tab.n, nv, self.n_dofs)
-        self._patch_slots, self._patch_size = build_patch_slots(plan, tab,
-                                                                nv=nv)
+        if isinstance(plan, PatchPlan3D):
+            if nv != 1:
+                raise ValueError("3-D patch layout: one unknown")
+            tab = build_patch_tables_3d(plan)
+            assert tab.n == self.n_dofs, (tab.n, self.n_dofs)
+            self._patch_slots, self._patch_size = build_patch_slots_3d(
+                plan, tab)
+        else:
+            tab = build_patch_tables(plan)
+            assert tab.n * nv == self.n_dofs, (tab.n, nv, self.n_dofs)
+            self._patch_slots, self._patch_size = build_patch_slots(
+                plan, tab, nv=nv)
         self._patch_nv = nv
         self.patch_tab = tab
         self._tables_cache = None
@@ -783,8 +799,14 @@ class Assembler:
             tab = self.patch_tab
             t["patch_slots"] = i64(self._patch_slots.reshape(-1))
             t["patch_owner"] = torch.as_tensor(tab.owner, device=dev)
-            t["patch_routing"] = routing = patch_routing(tab, dev)
             # symmetric Dirichlet elimination in stencil form, as masks
+            if isinstance(tab, PatchTables3D):
+                t["patch_routing"] = routing = patch_routing_3d(tab, dev)
+                t["patch_dir_bad"], t["patch_dir_ident"] = \
+                    dirichlet_masks_3d(routing, t["dir_mask"],
+                                       t["patch_owner"])
+                return t
+            t["patch_routing"] = routing = patch_routing(tab, dev)
             t["patch_dir_bad"], t["patch_dir_ident"] = dirichlet_masks(
                 patch_meta(tab), routing, t["dir_mask"], t["patch_owner"],
                 self._patch_nv)
@@ -1064,6 +1086,11 @@ class Assembler:
         if self.patch_tab is not None:
             tab, t, nv = self.patch_tab, self.device_tables_cached(), \
                 self._patch_nv
+            if isinstance(tab, PatchTables3D):
+                wt = apply_dirichlet(
+                    data.view(K3, tab.H, tab.H, tab.H, tab.Pp),
+                    t["patch_dir_bad"], t["patch_dir_ident"])
+                return make_patch_op_3d(tab, wt, t["patch_routing"])
             wt = apply_dirichlet(data.view(nv * nv * K, tab.H, tab.H, tab.Pp),
                                  t["patch_dir_bad"], t["patch_dir_ident"])
             if nv > 1:

@@ -9,6 +9,7 @@ from typing import List
 
 from .mesh import Mesh
 from .patches import refine_patched
+from .patches3d import refine_patched_hex
 from .refine import refine
 
 
@@ -46,20 +47,18 @@ class PatchedMultiLevelMesh(MultiLevelMesh):
     ``mesh.patch_plan``, enabling the patch-stencil operator path
     (SolverConfig.operator = "patch").  Element ORDER matches the plain
     refine() chain at every level, so prolongation lineage
-    (``parent_elem``) stays valid across levels.  2-D quad coarse meshes
-    only: the 3-D (hex) patch operator is not ported yet."""
+    (``parent_elem``) stays valid across levels.  A hex coarse mesh gets
+    the 3-D plans (``mesh.patches3d.refine_patched_hex``)."""
 
     def __init__(self, coarse: Mesh, n_levels: int = 1):
-        if coarse.geom == "hex":
-            raise NotImplementedError(
-                "3-D patch hierarchies (hex coarse meshes) are not ported "
-                "yet: see ROADMAP A10, the 3-D patch operator")
         coarse.patch_plan = None
         self.levels = [coarse]
         self.refine_to(n_levels)
 
     def refine_to(self, n_levels: int) -> None:
+        build = refine_patched_hex if self.levels[0].geom == "hex" \
+            else refine_patched
         while len(self.levels) < n_levels:
-            fine, plan = refine_patched(self.levels[0], len(self.levels))
+            fine, plan = build(self.levels[0], len(self.levels))
             fine.patch_plan = plan
             self.levels.append(fine)

@@ -25,6 +25,7 @@ from ..algebra.krylov import cg, fgmres, gmres
 from ..algebra.mg import (build_hierarchy, build_hierarchy_from_ops,
                           build_hierarchy_matfree)
 from ..algebra.patchstencil import spmv_patch_cuda
+from ..algebra.patchstencil3d import PatchTables3D
 from ..algebra.sparse import op_from_scipy
 from ..algebra.stencil import spmv_stencil_cuda
 from ..algebra.transfer import (block_diag_prolongation, build_ptap_schedule,
@@ -470,7 +471,12 @@ class System:
         if cfg.operator == "patch":
             for l in range(1 if transfers else level, level + 1):
                 al = self.assemblers[l]
-                if al.patch_tab is not None:
+                if isinstance(al.patch_tab, PatchTables3D):
+                    # the 3-D patch operator is plain torch (the JAX
+                    # package has no Pallas kernel for it)
+                    self._route_note(n_rows=al.n_dofs, path="patch3d",
+                                     kernel=None)
+                elif al.patch_tab is not None:
                     self._route_note(n_rows=al.n_dofs, path="patch",
                                      kernel="patch_stencil")
                 else:

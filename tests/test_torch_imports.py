@@ -60,6 +60,33 @@ def test_slice6_modules_are_covered():
         assert f"femus_tpu_torch.{m}" in mods, m
 
 
+def test_multi_device_and_3d_patch_modules_are_covered():
+    """The multi-device layer, the native set-up kernels, the sharded
+    particles and the 3-D patch operator are among the modules the import
+    checks walk (no jax, no femus_tpu)."""
+    mods = set(_modules())
+    for m in ("native", "parallel.partition", "parallel.ranks",
+              "parallel.halo", "parallel.spmd", "parallel.patch_spmd",
+              "parallel.cases", "particles.sharded", "mesh.patches3d",
+              "algebra.patchstencil3d"):
+        assert f"femus_tpu_torch.{m}" in mods, m
+
+
+def test_multi_device_entry_points_default_to_the_card(no_cuda):
+    """device_mesh and the parallel problems run on the card unless asked
+    for the host; outside a launch, device_mesh is one rank."""
+    from femus_tpu_torch.parallel import cases
+    from femus_tpu_torch.parallel.ranks import device_mesh
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        device_mesh()
+    one = device_mesh(1, "cpu")
+    assert (one.world_size, one.rank, one.backend) == (1, 0, "none")
+    with pytest.raises(ValueError):
+        device_mesh(4, "cpu")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cases.poisson_assembler(2, "cuda")
+
+
 def test_no_source_file_imports_the_jax_package():
     for dirpath, _, files in os.walk(PKG_DIR):
         for f in files:

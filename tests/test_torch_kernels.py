@@ -780,3 +780,73 @@ def test_particle_form_assembly_on_card_matches_host(cuda):
         ref = out["cpu"][k]
         assert float((out["cuda"][k] - ref).abs().max()) <= \
             1e-12 * float(ref.abs().max())
+
+
+# ---- the multi-device layer's blocks --------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("val_dtype,rtol", [(torch.float32, 1e-5),
+                                            (torch.float64, 1e-12)])
+@pytest.mark.parametrize("rank", [0, 2, 3])
+def test_bell_kernel_on_rank_blocks(cuda, val_dtype, rtol, rank):
+    """B1 on one rank's interior (R x R) and boundary (B x (R + S m))
+    sliced-ELL blocks of the 4-way halo plan of the NS Jacobian: the
+    rectangular blocks the halo SpMV runs, against the plain version."""
+    from femus_tpu_torch.algebra.sparse import pad_pattern
+    from femus_tpu_torch.parallel import halo
+    pattern, data = _ns_jacobian()
+    n_pad = -(-pattern.n_rows // 4) * 4
+    pat = pad_pattern(pattern, n_pad, n_pad)
+    full = torch.zeros((n_pad, pat.width), dtype=torch.float64)
+    full[:pattern.n_rows, :pattern.width] = data
+    full[pattern.n_rows:, 0] = 1.0
+    plan = halo.build_halo_plan(pat, 4)
+    lb = halo.build_local_sell(plan, pat, rank)
+    R = plan.rows_per_shard
+    blk = full[rank * R:(rank + 1) * R]
+    assert lb.boundary.n_cols == lb.C > lb.R == lb.interior.n_cols
+    rng = np.random.default_rng(rank)
+    for sell, n_cols in ((lb.interior, lb.R), (lb.boundary, lb.C)):
+        op_c = bell.relayout_ell(sell.to_device(cuda), blk.to(cuda),
+                                 dtype=val_dtype, device=cuda)
+        op_h = bell.relayout_ell(sell.to_device("cpu"), blk,
+                                 dtype=val_dtype, device="cpu")
+        x = torch.as_tensor(rng.standard_normal(n_cols), dtype=val_dtype)
+        n0 = bell.spmv_bell_cuda.launches
+        y = op_c.matvec_frame(x.to(cuda))
+        torch.cuda.synchronize()
+        assert bell.spmv_bell_cuda.launches == n0 + 1
+        assert y.shape == (sell.n,)
+        ref = op_h.matvec_frame(x)
+        scale = _abs_op(op_h).matvec_frame(x.abs()).max()
+        assert float((y.cpu() - ref).abs().max()) <= rtol * float(scale)
+    with pytest.raises(ValueError):
+        op_c.matvec_frame(torch.ones(lb.R, dtype=val_dtype, device=cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-5),
+                                        (torch.float64, 1e-12)])
+@pytest.mark.parametrize("rank", [0, 1, 3])
+def test_patch_kernel_on_a_slab(cuda, dtype, rtol, rank):
+    """B2 on one rank's slab of patches (``parallel.patch_spmd``): the
+    slab's own operator (restricted routing, sides of other slabs
+    dropped) against its plain version, and the interior rows of the
+    slab equal to the whole operator's."""
+    from femus_tpu_torch.parallel import patch_spmd as pspmd
+    op = _patch_op(1, dtype, "cpu", rotate=True)
+    lo, hi = pspmd.slab_bounds(op.meta[1], 4)[rank]
+    part = pspmd.patch_slab(op, lo, hi)
+    slab_c = pspmd.slab_operator(part, cuda)
+    _check_patch_matvec(slab_c, dtype, rtol)
+    x = torch.as_tensor(np.random.default_rng(2).standard_normal(op.n_rows),
+                        dtype=dtype)
+    xi, xe, xv = pspmd.split_vector(op.meta, x)
+    xl = torch.cat([xi[:, :, lo:hi].reshape(-1), xe.reshape(-1), xv])
+    y = slab_c.matvec(xl.to(cuda)).cpu()
+    E, P = op.meta[3], op.meta[1]
+    y_full = op.matvec(x)[:E * E * P].view(E, E, P)[:, :, lo:hi]
+    n_int = E * E * (hi - lo)
+    assert float((y[:n_int].view(E, E, hi - lo) - y_full).abs().max()) <= \
+        rtol * float(x.abs().max() * op.wt.abs().sum(0).max())

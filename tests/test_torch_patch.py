@@ -186,8 +186,13 @@ def test_patched_hierarchy_levels():
         np.testing.assert_array_equal(jm.conn, tm.conn)
         np.testing.assert_array_equal(jm.coords, tm.coords)
         assert jm.patch_plan.H == tm.patch_plan.H
-    with pytest.raises(NotImplementedError, match="3-D patch"):
-        tml.PatchedMultiLevelMesh(tgen.unit_box((1, 1, 1), "hex"), 2)
+    # a hex coarse mesh gets the 3-D plans (the JAX package's hex branch)
+    jmm = jml.PatchedMultiLevelMesh(jgen.unit_box((1, 1, 1), "hex"), 2)
+    tmm = tml.PatchedMultiLevelMesh(tgen.unit_box((1, 1, 1), "hex"), 2)
+    for jm, tm in zip(jmm.levels[1:], tmm.levels[1:]):
+        np.testing.assert_array_equal(jm.conn, tm.conn)
+        np.testing.assert_array_equal(jm.coords, tm.coords)
+        assert jm.patch_plan.H == tm.patch_plan.H
 
 
 # ---- assembly and operators --------------------------------------------
