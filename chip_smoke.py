@@ -140,7 +140,7 @@ the BELL-frame operator (kernel B1; see ``oc_system``, constants OC_*):
 
 Slice 5, monolithic ALE fluid-structure interaction on the BELL-frame
 operator (kernel B1), with the Petrov-Galerkin R A P hierarchy and
-material-split Vanka (see ``fsi_system``):
+material-split Vanka (``femus_tpu_torch.parallel.cases.fsi_bed``):
 
 24. fsi_setup     — System.init of fsi-bed-64: unit_box((16,16)) refined
                     to 3 levels, finest 64x64, dx, dy, u, v Q2 and p P1dc
@@ -346,7 +346,12 @@ line names the backend and that the ranks share the card:
                     cavity-64 (within 1e-8); the production step's seconds
                     (cold, warm), then an instrumented step (same
                     solution) with seconds per iteration in exchange,
-                    local matvec and reductions;
+                    local matvec and reductions; since slice 11 also
+                    dryrun-vanka (the same cavity with Vanka blocks on
+                    both levels) and fsi-vanka-aux (one K-cycle step of
+                    the transient fsi-bed at 78,852 dofs, f64: R·A·P
+                    transfers, Vanka on every level, the old fields as aux
+                    fields), each with equal iterations and within 1e-9;
 49. dist_patch    — poisson-patch-1M's operator over 4 slabs of patches,
                     B2 on each slab, skeleton closed by one all_reduce;
                     gate against the global B2 at 1e-5 of max(|A||x|);
@@ -367,6 +372,27 @@ line names the backend and that the ranks share the card:
                     solve's iterations and
                     seconds, and unit_box((2,2,2)) at 3 levels on the card
                     (float32) against the host (float64).
+
+Slice 11, the System diagnostics, the profiler trace, the writers and
+the checkpoints, on the solved cavity-128 right after phase 3
+(``run_slice11``; the state the solve left stays as it is):
+
+3a. diagnostics   — System.profile_step(-1, reps=3): assembly, coarsening
+                    and solve-step seconds, the B1 launches of the solve
+                    steps (> 0), dofmap_size of u, v, p equal to the
+                    solution's and the dof maps' sizes, peak device bytes;
+3b. trace         — one Newton step under utils.telemetry.trace: the
+                    Chrome trace must name B1's kernel (sell_spmv_kernel);
+3c. writers       — VTKWriter and GMVWriter of the finest u, v, p
+                    (seconds, bytes); the GMV read back and the VTU parsed
+                    back equal nodal_field exactly; XDMF only where h5py
+                    is installed (find_spec; the card's machine has none);
+3d. checkpoint    — capture_solution, CheckpointManager.save, a fresh
+                    cavity-128 System, restore: the arrays equal exactly;
+                    one solve step from each: their ends within
+                    CKPT_STEP_RTOL; one from each kicked state (free dofs
+                    scaled by 1 + CKPT_KICK): updates within
+                    CKPT_UPDATE_RTOL.
 
 Then the card's name and power limit, the kernel table as one JSON line,
 and the final status line.
@@ -413,30 +439,16 @@ PATCH_ERR_MAX = 2.5e-2
 RESIDUAL_SLACK = {"patch_main": 100.0, "patch_elasticity": 1000.0}
 # fsi-bed-64 (steady; fsi-bed-128 at 4 levels before the whole run's
 # clock needed the room) and fsi-bed-transient-64: coarsest cells per side,
-# mesh levels of each; the bed is the elements whose centroid has y < 0.25
+# mesh levels of each; the problem and its constants (FSI_*) are
+# femus_tpu_torch.parallel.cases.fsi_bed's
 FSI_COARSE, FSI_LEVELS, FSI_TRANSIENT_LEVELS = 16, 3, 3
-FSI_FIELDS = ("dx", "dy", "u", "v", "p")
-FSI_BED = 0.25
-# the lid speed and viscosity of the steady case: the JAX package's Newton
-# at 3 levels on the host needs more than 8 steps (it diverges) at nu 0.01
-# and lid 1, so nu 0.05, lid 0.2 (PERF.md, section 4)
-FSI_NU, FSI_LID = 0.05, 0.2
-FSI_KICK, FSI_DT, FSI_TRANSIENT_STEPS = 0.5, 0.01, 3
-# the pressure is pinned at the value dof of the last element (top right,
-# in the fluid on every level): inside the solid, where p = 0 holds
-# anyway, a pin leaves the fluid pressure's level free and the Newton
-# iteration wanders
-FSI_PIN = -3
+# FSI_TRANSIENT_STEPS: 2 since slice 11 (3 before; cut for the run's clock)
+FSI_TRANSIENT_STEPS = 2
 # the FSI phases solve in float64: in float32 the K-cycle FGMRES's true
 # residual stalls far above its estimate, the Newton corrections floor
 # near 1e-5 and a Vanka block of the small reference case factors with an
 # exact zero pivot (PERF.md, section 6; tools/torch_fsi_precision.py)
 FSI_DTYPE = torch.float64
-# relative Newton correction at which a level's loop stops
-FSI_NONLINEAR_TOL = 1e-5
-# FGMRES(60) restarts per linear solve: the finest fsi-bed-128 level needed
-# 800-1,800 iterations for rtol 1e-4
-FSI_MAX_OUTER = 40
 
 
 # slice 6: oc-distributed-128 and oc-boundary-128 (unit_box((16,16)), 4
@@ -470,7 +482,8 @@ CONV_COARSE, CONV_LEVELS = 4, 6
 # package too (15, 18, 18 at 21k, 34k, 54k dofs on the host,
 # tools/amr_lshape_iterations.py; 21 at 87k), so there a cycle may take
 # at most AMR_ITER_GROWTH more than the one before
-AMR_COARSE, AMR_CYCLES, AMR_FRACTION = 32, 8, 0.2
+# AMR_CYCLES: 7 since slice 11 (8 before; cut for the run's clock)
+AMR_COARSE, AMR_CYCLES, AMR_FRACTION = 32, 7, 0.2
 AMR_TOL, AMR_MAX_ITERS, AMR_CONFORMING_MAX_DOFS = 1e-10, 15, 20000
 AMR_ITER_GROWTH = 4
 
@@ -534,7 +547,14 @@ KERNEL_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                "library_ms")
 
 
+_T0 = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase line also carries ``t_s``, the seconds since
+    the script started (where the run's time goes)."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": time.perf_counter() - _T0}
     print(json.dumps(obj), flush=True)
 
 
@@ -2207,96 +2227,6 @@ def phase_oc_reference() -> None:
         raise AssertionError(f"card and host slice-6 paths differ: {rep}")
 
 
-def fsi_system(coarse: int, levels: int, device, dtype, rtol: float,
-               max_nonlinear: int, transient: bool = False,
-               lid: float = None, **config):
-    """fsi-bed through the port's public entry points: an elastic bed
-    (element centroid y < FSI_BED, element group 1) under a fluid, dx, dy,
-    u, v biquadratic and p disc_linear, pairs u->dx and v->dy, neo-Hookean
-    lam = mu = 50, the pressure pinned at FSI_PIN.  Steady: lid-driven
-    (u = FSI_LID on the top wall, group 4; ``lid`` overrides it),
-    fsi_steady_form with nu = FSI_NU.  ``transient``: everything clamped,
-    the bed kicked horizontally (FSI_KICK), fsi_transient_form with
-    rho_f = rho_s = 1, nu = 0.05, theta = 1, dt = FSI_DT, through
-    TransientMonolithicFSI.  Solver: operator="bell", interleaved dofs,
-    material-split Vanka (2 elements per block), F ratchet, K-cycle FGMRES
-    (restart 60, FSI_MAX_OUTER restarts); ``config`` overrides fields of
-    its SolverConfig."""
-    from femus_tpu_torch.mesh.generation import unit_box
-    from femus_tpu_torch.mesh.multilevel import MultiLevelMesh
-    from femus_tpu_torch.systems.fsi import (MonolithicFSISystem,
-                                             TransientMonolithicFSI,
-                                             fsi_steady_form,
-                                             fsi_transient_form)
-    from femus_tpu_torch.systems.problem import MultiLevelProblem
-    from femus_tpu_torch.systems.solution import MultiLevelSolution
-
-    mesh = unit_box((coarse, coarse), "quad")
-    cent = mesh.coords[mesh.conn].mean(axis=1)
-    mesh.elem_group = np.where(cent[:, 1] < FSI_BED, 1, 0).astype(np.int32)
-    ml_mesh = MultiLevelMesh(mesh, levels)
-    ml_sol = MultiLevelSolution(ml_mesh)
-    for v in ("dx", "dy", "u", "v"):
-        ml_sol.add_solution(v, "biquadratic", time_order=int(transient))
-    ml_sol.add_solution("p", "disc_linear")
-
-    def bc(var, x, grp, t):
-        if var == "p":
-            return (False, 0.0)
-        if var == "u" and grp == 4 and not transient:
-            return (True, FSI_LID if lid is None else lid)   # moving lid
-        return (True, 0.0)                        # clamped, no-slip
-
-    ml_sol.attach_bc(bc)
-    for v in FSI_FIELDS:
-        ml_sol.initialize(v)
-    if transient:
-        ml_sol.initialize("u", lambda x: np.where(
-            x[:, 1] < FSI_BED, FSI_KICK * np.sin(np.pi * x[:, 0])
-            * np.sin(np.pi * x[:, 1] / FSI_BED), 0.0))
-    ml_sol.generate_bdc()
-    ml_sol.fix_solution_at_point("p", FSI_PIN, 0.0)
-    ml_sol.pair_solution("u", "dx")
-    ml_sol.pair_solution("v", "dy")
-    prob = MultiLevelProblem(ml_mesh, ml_sol, quad_order="fifth")
-    if transient:
-        sys_ = prob.add_system(TransientMonolithicFSI, "FSI")
-        form = fsi_transient_form(
-            ("dx", "dy"), ("u", "v"), "p", solid_groups=(1,),
-            pres_family="disc_linear", rho_f=1.0, nu=0.05, rho_s=1.0,
-            lam=50.0, mu=50.0, solid_model="neo-hookean", theta=1.0)
-    else:
-        sys_ = prob.add_system(MonolithicFSISystem, "FSI")
-        form = fsi_steady_form(
-            ("dx", "dy"), ("u", "v"), "p", solid_groups=(1,),
-            pres_family="disc_linear", nu=FSI_NU, lam=50.0, mu=50.0,
-            solid_model="neo-hookean")
-    sys_.solid_groups = (1,)
-    sys_.add_unknown(*FSI_FIELDS)
-    sys_.set_assembly(form)
-    cfg = sys_.config
-    cfg.operator = "bell"
-    cfg.interleave_dofs = True
-    cfg.smoother = "vanka"
-    cfg.vanka_groups = "material"
-    cfg.vanka_block_elems = 2
-    cfg.mg_type = "F"
-    cfg.mg_cycle = "K"
-    cfg.restart = 60
-    cfg.max_outer = FSI_MAX_OUTER
-    cfg.rtol = rtol
-    cfg.max_nonlinear = max_nonlinear
-    cfg.nonlinear_tol = FSI_NONLINEAR_TOL
-    for key, value in config.items():
-        if not hasattr(cfg, key):
-            raise AttributeError(f"SolverConfig has no field {key!r}")
-        setattr(cfg, key, value)
-    if transient:
-        sys_.init_time(FSI_DT)
-    sys_.init(device=device, dtype=dtype)
-    return sys_, ml_sol
-
-
 def _levels_converged(sys_) -> bool:
     """Every level's Newton loop of the last solve ended below its
     nonlinear tolerance, and every linear solve met its rtol."""
@@ -2318,9 +2248,12 @@ def _res_norm(sys_) -> float:
 
 
 def phase_fsi_setup() -> tuple:
+    from femus_tpu_torch.parallel import cases
+
     t0 = time.perf_counter()
-    sys_, ml_sol = fsi_system(FSI_COARSE, FSI_LEVELS, "cuda", FSI_DTYPE,
-                              rtol=1e-4, max_nonlinear=8)
+    sys_ = cases.fsi_bed(FSI_COARSE, FSI_LEVELS, "cuda", FSI_DTYPE,
+                         rtol=1e-4, transient=False, max_nonlinear=8)
+    ml_sol = sys_.ml_sol
     setup_s = time.perf_counter() - t0
     levels = []
     for a, tr in zip(sys_.assemblers, sys_.transfers + [None]):
@@ -2340,6 +2273,8 @@ def phase_fsi_setup() -> tuple:
 
 def _fsi_observables(sys_, ml_sol) -> dict:
     """max |u| in the fluid and max |dx| on the interface y = FSI_BED."""
+    from femus_tpu_torch.parallel.cases import FSI_BED
+
     mesh = sys_.ml_mesh.levels[-1]
     xy = mesh.coords[mesh.dofmap("biquadratic").nodes]
     sol = ml_sol.sol[-1]
@@ -2352,6 +2287,7 @@ def _fsi_observables(sys_, ml_sol) -> dict:
 def phase_fsi_main(sys_, ml_sol, setup_s: float) -> dict:
     """NonLinearImplicitSystem.solve on fsi-bed-64, with the launch
     counts set to 0 just before it and read just after."""
+    from femus_tpu_torch.parallel.cases import FSI_FIELDS
     from femus_tpu_torch.systems.system import launch_counts
 
     res0 = _res_norm(sys_)               # the finest level's initial state
@@ -2411,12 +2347,13 @@ def phase_fsi_main(sys_, ml_sol, setup_s: float) -> dict:
 
 def phase_fsi_transient() -> dict:
     """fsi-bed-transient-64: FSI_TRANSIENT_STEPS x time_step()."""
+    from femus_tpu_torch.parallel.cases import FSI_DT, FSI_FIELDS, fsi_bed
     from femus_tpu_torch.systems.system import launch_counts
 
     t0 = time.perf_counter()
-    sys_, ml_sol = fsi_system(FSI_COARSE, FSI_TRANSIENT_LEVELS, "cuda",
-                              FSI_DTYPE, rtol=1e-4, max_nonlinear=8,
-                              transient=True)
+    sys_ = fsi_bed(FSI_COARSE, FSI_TRANSIENT_LEVELS, "cuda", FSI_DTYPE,
+                   rtol=1e-4, max_nonlinear=8)
+    ml_sol = sys_.ml_sol
     setup_s = time.perf_counter() - t0
     solid = ml_sol.ml_mesh.levels[-1].elem_group == 1
     bed = np.unique(ml_sol.ml_mesh.levels[-1].dofmap("biquadratic")
@@ -2463,16 +2400,18 @@ def phase_fsi_reference() -> None:
     """Steady FSI (pairs, material Vanka, MG) and two transient steps on
     unit_box((4,4)), 2 levels: the card's float32 against the host's
     float64, every field."""
+    from femus_tpu_torch.parallel.cases import FSI_FIELDS, fsi_bed
+
     rep = {"phase": "fsi_reference"}
     for case in ("steady", "transient"):
         fields = {}
         for device, dtype in (("cuda", FSI_DTYPE), ("cpu", torch.float64)):
             # at lid 0.2 the 8x8 Newton from the 4x4 solution wanders
             # (host, float64); at 0.02 it converges
-            sys_, ml_sol = fsi_system(4, 2, device, dtype, rtol=1e-6,
-                                      max_nonlinear=8,
-                                      transient=case == "transient",
-                                      lid=0.02)
+            sys_ = fsi_bed(4, 2, device, dtype, rtol=1e-6,
+                           transient=case == "transient", lid=0.02,
+                           max_nonlinear=8)
+            ml_sol = sys_.ml_sol
             if case == "steady":
                 sys_.solve()
             else:
@@ -4217,8 +4156,9 @@ DIST_HALO_CASES = (("cavity", 128, "f32"), ("cavity", 128, "f64"),
 DIST_VARIANTS = (("bell", "auto", True), ("bell", "all_to_all", False),
                  ("ell", "auto", True))
 DIST_STEP_LEVELS, DIST_DRYRUN_COARSE = 4, 32
-# (RK4 steps of 2 pi / 400, a tenth of a revolution)
-DIST_MARKERS_STEPS, DIST_MARKERS_DT = 40, 2 * np.pi / 400
+# (RK4 steps of 2 pi / 400, a twentieth of a revolution; 40 steps before
+# slice 11, cut for the run's clock)
+DIST_MARKERS_STEPS, DIST_MARKERS_DT = 20, 2 * np.pi / 400
 # patch3d: Q2 Poisson, -Lap u = 3 pi^2 sin sin sin, operator="patch" on
 # PatchedMultiLevelMesh(unit_box((6,6,6), "hex"), PATCH3D_LEVELS): finest
 # 48^3 elements, 97^3 = 912,673 dofs, float32
@@ -4229,12 +4169,27 @@ PATCH3D_ELL_LEVEL = 2
 
 
 def _dist_step_configs() -> list:
-    return [dict(case="poisson", n=NEU_COARSE << (NEU_LEVELS - 1),
-                 levels=DIST_STEP_LEVELS, outer="cg", rtol=1e-8,
-                 restart=30, max_outer=20, local_format="bell", timed=True),
-            dict(case="dryrun", n=DIST_DRYRUN_COARSE, outer="gmres",
-                 rtol=1e-6, restart=20, max_outer=3, local_format="bell",
-                 timed=True)]
+    """(name, config, tolerance of 4 ranks against 1) of each dist_step
+    case.  Slice 11 adds dryrun-vanka (the dryrun cavity with Vanka blocks
+    of 2 elements on both levels, GMRES) and fsi-vanka-aux (one Newton
+    step of the transient fsi-bed's first theta-step at fsi-bed-64's size,
+    FSI_COARSE and FSI_LEVELS, float64: the R·A·P transfers, Vanka on
+    every level, the K-cycle with FGMRES(15) for one cycle, the old
+    fields as aux fields, after the ratchet of the coarser levels)."""
+    dryrun = dict(case="dryrun", n=DIST_DRYRUN_COARSE, outer="gmres",
+                  rtol=1e-6, restart=20, max_outer=3, local_format="bell")
+    return [("poisson", dict(case="poisson",
+                             n=NEU_COARSE << (NEU_LEVELS - 1),
+                             levels=DIST_STEP_LEVELS, outer="cg", rtol=1e-8,
+                             restart=30, max_outer=20, local_format="bell",
+                             timed=True), 1e-9),
+            ("dryrun", dict(dryrun, timed=True), 1e-8),
+            ("dryrun-vanka", dict(dryrun, smoother="vanka"), 1e-9),
+            ("fsi-vanka-aux", dict(case="fsi", n=FSI_COARSE,
+                                   levels=FSI_LEVELS, outer="fgmres",
+                                   rtol=1e-6, restart=15, max_outer=1,
+                                   smoother="vanka", mg_cycle="K",
+                                   local_format="bell"), 1e-9)]
 
 
 def phase_dist_partition() -> dict:
@@ -4416,7 +4371,8 @@ def phase_dist_step() -> dict:
     from femus_tpu_torch.parallel import cases
     from femus_tpu_torch.parallel.ranks import launch
 
-    cfgs = _dist_step_configs()
+    named = _dist_step_configs()
+    cfgs = [cfg for _, cfg, _ in named]
     t0 = time.perf_counter()
     r4 = launch(cases.step_rank, DIST_RANKS, (cfgs,), device="cuda",
                 timeout=DIST_TIMEOUT)
@@ -4433,8 +4389,8 @@ def phase_dist_step() -> dict:
     rep = {"phase": "dist_step", "ranks": DIST_RANKS, "share_card": True,
            "launch_s": {"4": t1 - t0, "1": t2 - t1}}
     ok = True
-    launches = 0
-    for i, (cfg, tol) in enumerate(zip(cfgs, (1e-9, 1e-8))):
+    launches = vanka_launches = 0
+    for i, (name, cfg, tol) in enumerate(named):
         per4 = [r[i] for r in r4]
         one = r1[0][i]
         u4 = cases.join_rows(per4)
@@ -4448,31 +4404,41 @@ def phase_dist_step() -> dict:
                "converged": per4[0]["converged"], "max_diff": diff,
                "tol": tol,
                # the production step (overlapped halo SpMV, no timing
-               # sections), cold then warm
+               # sections), cold then warm for the timed cases
                "step_s_4": [max(p["step_s"][k] for p in per4)
                             for k in range(len(one["step_s"]))],
                "step_s_1": one["step_s"],
                "setup_s_4": max(p["setup_s"] for p in per4),
                "setup_s_1": one["setup_s"],
-               # the instrumented step: every section synchronises the
-               # card and the exchange runs before the local product
-               "timed_step_s_4": max(p["timed_step_s"] for p in per4),
-               "timed_step_s_1": one["timed_step_s"],
-               "timed_max_diff": max(p["timed_diff"] for p in per4 + [one]),
-               "timed_per_iteration_s_4": {
-                   k: max(p["clock"][k] for p in per4) / max(iters, 1)
-                   for k in per4[0]["clock"]},
-               "timed_per_iteration_s_1": {
-                   k: one["clock"][k] / max(iters, 1) for k in one["clock"]},
                "b1_launches_per_rank": [p["b1_launches"] for p in per4],
                "note_4": per4[0]["note"], "note_1": one["note"]}
-        rep[cfg["case"]] = row
+        if cfg.get("timed"):
+            # the instrumented step: every section synchronises the card
+            # and the exchange runs before the local product
+            row.update({
+                "timed_step_s_4": max(p["timed_step_s"] for p in per4),
+                "timed_step_s_1": one["timed_step_s"],
+                "timed_max_diff": max(p["timed_diff"]
+                                      for p in per4 + [one]),
+                "timed_per_iteration_s_4": {
+                    k: max(p["clock"][k] for p in per4) / max(iters, 1)
+                    for k in per4[0]["clock"]},
+                "timed_per_iteration_s_1": {
+                    k: one["clock"][k] / max(iters, 1)
+                    for k in one["clock"]}})
+            ok &= row["timed_max_diff"] <= tol
+        rep[name] = row
         launches += sum(row["b1_launches_per_rank"])
-        ok &= (diff <= tol and row["timed_max_diff"] <= tol
-               and len(set(row["iters_4"])) == 1)
-        if cfg["case"] == "poisson":
-            ok &= iters == one["iters"] and row["converged"]
+        ok &= diff <= tol and len(set(row["iters_4"])) == 1
+        if name != "dryrun":
+            ok &= iters == one["iters"]
+        if name == "poisson":
+            ok &= row["converged"]
+        if cfg.get("smoother") == "vanka":
+            vanka_launches += sum(row["b1_launches_per_rank"])
+            ok &= min(row["b1_launches_per_rank"]) > 0
     rep["b1_launches"] = launches
+    rep["vanka_b1_launches"] = vanka_launches
     emit(rep)
     if not ok:
         raise AssertionError("dist_step: 4 ranks and 1 rank disagree")
@@ -4635,7 +4601,7 @@ def phase_nccl_world1(step: dict) -> dict:
            "b1_launches": per["launches"]["bell/auto/overlap"],
            "step_poisson_iters": one[0]["iters"],
            "step_dryrun_iters": one[1]["iters"],
-           "step_b1_launches": one[0]["b1_launches"] + one[1]["b1_launches"]}
+           "step_b1_launches": sum(c["b1_launches"] for c in one)}
     emit(rep)
     if not (err <= 1e-12 * scale and rep["b1_launches"] > 0):
         raise AssertionError("nccl_world1: the world-1 halo SpMV disagrees")
@@ -4775,6 +4741,262 @@ def run_slice10() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# slice 11: the System diagnostics, the profiler trace, the writers and the
+# checkpoints, on the solved cavity-128 of slice 1 (the main path's system,
+# float32, B1), and the sharded step's Vanka smoother and aux fields (two
+# more dist_step configs)
+# ---------------------------------------------------------------------------
+
+# relative gap allowed between the ends of one Newton step from the saved
+# state and one from the restored state (float32; index_add_ atomics on
+# the card do not repeat bit for bit), relative to the end
+CKPT_STEP_RTOL = 1e-5
+# From the solved state a step's update is float32 rounding (1e-7 to
+# 1.4e-5 of u): two such steps differed by 8.5e-4 to 0.2 of the update on
+# an NVIDIA H100 80GB HBM3, 700.00 W, so their updates say nothing of the
+# restored System.  The updates are compared from a kicked start instead:
+# the free dofs of the state scaled by 1 + CKPT_KICK, which one step
+# visibly corrects (the update is then 0.97 % of the end).
+# CKPT_UPDATE_RTOL bounds the gap between the updates of a step from the
+# saved and from the restored kicked state, relative to the update: 5 x 5
+# such pairs differed by 2.4e-6 to 1.4e-4, two steps from the saved state
+# by 7.5e-6 to 1.9e-4, all with 6 GMRES iterations (the same card,
+# tools/torch_checkpoint_step_gap.py); a step that does nothing differs
+# by 1
+CKPT_KICK, CKPT_UPDATE_RTOL = 1e-2, 1e-2
+
+
+def _b1_launches() -> int:
+    from femus_tpu_torch.systems.system import launch_counts
+    return launch_counts()["bell_spmv"]
+
+
+def phase_diagnostics(sys_, ml_sol) -> dict:
+    """System.profile_step(-1, reps=3) on the solved cavity-128: the
+    assembly, coarsening (the finest transfer's PtAP schedule) and solve
+    step seconds, each the best of 3 after a warm call ending in
+    torch.cuda.synchronize(); the B1 launches of the profiled calls (all
+    in the solve-step phase), peak device bytes; dofmap_size of u, v, p
+    against the solution's sizes and the dof maps'."""
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    prof = sys_.profile_step(-1, reps=3)
+    wall = time.perf_counter() - t0
+    launches = _b1_launches()
+    mesh = sys_.ml_mesh.levels[-1]
+    sizes = {n: {"dofmap_size": sys_.dofmap_size(n, -1),
+                 "solution": int(ml_sol.sol[-1][n].shape[0]),
+                 "dofmap": mesh.dofmap(ml_sol.vars[n].family).n_dofs}
+             for n in ("u", "v", "p")}
+    rep = {"phase": "diagnostics", "profile_step": prof, "wall_s": wall,
+           "timing": {k: sys_.timing[k] for k in prof},
+           "b1_launches": launches,
+           "peak_device_bytes": torch.cuda.max_memory_allocated(),
+           "dofmap_size": sizes}
+    emit(rep)
+    if set(prof) != {"assembly_s", "coarsen_s", "solve_step_s"} or not all(
+            v > 0 for v in prof.values()):
+        raise AssertionError(f"diagnostics: profile_step gave {prof}")
+    if launches <= 0:
+        raise AssertionError("diagnostics: the solve step launched no B1")
+    if any(len(set(v.values())) != 1 for v in sizes.values()):
+        raise AssertionError(f"diagnostics: dofmap sizes {sizes}")
+    return rep
+
+
+def phase_trace(sys_) -> dict:
+    """One Newton step of the solved cavity-128 under
+    utils.telemetry.trace: the exported Chrome trace must name B1's
+    kernel (the profiler sees the card)."""
+    from femus_tpu_torch.utils.telemetry import trace
+    step = sys_.step_fn(-1)
+    u = torch.as_tensor(sys_.gather(-1), dtype=sys_.dtype,
+                        device=sys_.device)
+    step(u)                                   # warm
+    reset_launches()
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        with trace(d) as h:
+            out = step(u)
+        wall = time.perf_counter() - t0
+        launches = _b1_launches()
+        size = os.path.getsize(h.path)
+        events = json.load(open(h.path))["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    b1 = [e for e in kernels if "sell_spmv" in e.get("name", "")]
+    rep = {"phase": "trace", "wall_s": wall, "trace_bytes": size,
+           "events": len(events), "kernel_events": len(kernels),
+           "b1_kernel_events": len(b1),
+           "b1_kernel_us": sum(e.get("dur", 0.0) for e in b1),
+           "kernel_us": sum(e.get("dur", 0.0) for e in kernels),
+           "b1_launches": launches, "gmres_iters": out.lin_iters,
+           "b1_name": b1[0]["name"] if b1 else None}
+    emit(rep)
+    if not b1 or launches <= 0:
+        raise AssertionError("trace: the exported trace names no B1 kernel")
+    return rep
+
+
+def _vtu_point_data(path: str) -> dict:
+    """The point-data arrays of a .vtu written by io.vtk (base64 binary
+    payloads, float32)."""
+    import base64
+    import re
+    txt = open(path).read()
+    block = txt.split("<PointData>")[1].split("</PointData>")[0]
+    out = {}
+    for name, blob in re.findall(
+            r'<DataArray type="Float32" Name="([^"]+)"[^>]*>\n([^\n]*)\n',
+            block):
+        raw = base64.b64decode(blob)
+        n = int.from_bytes(raw[:4], "little")
+        out[name] = np.frombuffer(raw[4:4 + n], np.float32)
+    return out
+
+
+def phase_writers(ml_sol) -> dict:
+    """VTKWriter and GMVWriter of the finest u, v, p (seconds, bytes); the
+    GMV file read back by read_gmv and the VTU parsed back equal
+    nodal_field exactly (float64 in GMV, float32 in VTU).  XDMF runs only
+    where h5py is installed (importlib.util.find_spec)."""
+    import importlib.util
+
+    from femus_tpu_torch.io import GMVWriter, VTKWriter, nodal_field, read_gmv
+    mesh = ml_sol.ml_mesh.levels[-1]
+    names = ("u", "v", "p")
+    ref = {n: nodal_field(mesh, ml_sol.vars[n].family, ml_sol.sol[-1][n])
+           for n in names}
+    rep = {"phase": "writers", "n_nodes": mesh.n_nodes,
+           "n_elems": mesh.n_elems}
+    ok = True
+    with tempfile.TemporaryDirectory() as d:
+        for kind, writer in (("vtk", VTKWriter), ("gmv", GMVWriter)):
+            t0 = time.perf_counter()
+            path = writer(ml_sol).write(d, *names)
+            rep[kind] = {"seconds": time.perf_counter() - t0,
+                         "bytes": os.path.getsize(path)}
+            if kind == "vtk":
+                back = _vtu_point_data(path)
+                same = {n: bool(np.array_equal(back[n],
+                                               ref[n].astype(np.float32)))
+                        for n in names}
+            else:
+                _, conn, pd, _ = read_gmv(path)
+                same = {n: bool(np.array_equal(pd[n], ref[n]))
+                        for n in names}
+                same["conn"] = conn.shape == (mesh.n_elems, 8)
+            rep[kind]["read_back_equal"] = same
+            ok &= all(same.values())
+        if importlib.util.find_spec("h5py") is None:
+            rep["xdmf"] = "not run: h5py is not installed"
+        else:
+            from femus_tpu_torch.io import XDMFWriter, read_xdmf_h5
+            t0 = time.perf_counter()
+            path = XDMFWriter(ml_sol).write(d, *names)
+            back = read_xdmf_h5(path)["mesh0"]
+            rep["xdmf"] = {"seconds": time.perf_counter() - t0,
+                           "bytes": os.path.getsize(path[:-4] + ".h5"),
+                           "read_back_equal": all(
+                               np.array_equal(back[n], ref[n])
+                               for n in names)}
+            ok &= rep["xdmf"]["read_back_equal"]
+    emit(rep)
+    if not ok:
+        raise AssertionError("writers: a file read back differs")
+    return rep
+
+
+def kicked_start(s) -> torch.Tensor:
+    """The finest state of System ``s`` with its free (non-Dirichlet)
+    dofs scaled by 1 + CKPT_KICK, on the system's device."""
+    u = s.gather(-1)
+    u = np.where(s.masks[-1], u, u * (1.0 + CKPT_KICK))
+    return torch.as_tensor(u, dtype=s.dtype, device=s.device)
+
+
+def phase_checkpoint(sys_, ml_sol) -> dict:
+    """capture_solution -> CheckpointManager.save -> a freshly
+    initialised cavity-128 System -> restore: the restored host arrays
+    equal the saved ones exactly; then one Newton step (the solve step,
+    its state left alone) from each, whose ends agree within
+    CKPT_STEP_RTOL, and one from each kicked state, whose updates (end -
+    start) agree within CKPT_UPDATE_RTOL, relative (beside the gap
+    between two steps from the saved kicked state)."""
+    from femus_tpu_torch.utils.checkpoint import (CheckpointManager,
+                                                  capture_solution,
+                                                  restore_solution)
+    rep = {"phase": "checkpoint"}
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        state = {"solution": capture_solution(ml_sol)}
+        mgr = CheckpointManager(d, max_to_keep=1)
+        mgr.save(5, state)
+        rep["save_s"] = time.perf_counter() - t0
+        rep["bytes"] = os.path.getsize(os.path.join(d, "ckpt_5",
+                                                    "state.npz"))
+        t0 = time.perf_counter()
+        sys2, sol2 = cavity_system(
+            COARSE_CELLS, LEVELS, sys_.device, sys_.dtype,
+            rtol=sys_.config.rtol, max_nonlinear=sys_.config.max_nonlinear)
+        rep["fresh_init_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        restore_solution(sol2, mgr.restore()["solution"])
+        rep["restore_s"] = time.perf_counter() - t0
+    equal = all(np.array_equal(a[k], b[k])
+                for src, dst in ((ml_sol.sol, sol2.sol),
+                                 (ml_sol.sol_old, sol2.sol_old))
+                for a, b in zip(src, dst) for k in a)
+    reset_launches()
+    runs = []
+    # as restored: saved, restored; kicked: saved, restored, and saved
+    # again (the card's own repeat gap)
+    for s, kick in ((sys_, False), (sys2, False), (sys_, True),
+                    (sys2, True), (sys_, True)):
+        u = (kicked_start(s) if kick else
+             torch.as_tensor(s.gather(-1), dtype=s.dtype, device=s.device))
+        t0 = time.perf_counter()
+        out = s.step_fn(-1)(u)
+        torch.cuda.synchronize()
+        runs.append((out.u.double(), out.u.double() - u.double(),
+                     time.perf_counter() - t0, out.lin_iters))
+    (end0, *_), (end1, *_), (kend, upd0, *_), (_, upd1, *_), \
+        (_, upd2, *_) = runs
+    norm = lambda x: float(torch.linalg.norm(x))          # noqa: E731
+    rel = norm(end0 - end1) / norm(end0)
+    rel_upd = norm(upd0 - upd1) / norm(upd0)
+    rep.update({"arrays_equal": equal, "step_rel_diff": rel,
+                "rtol": CKPT_STEP_RTOL, "kick": CKPT_KICK,
+                "update_rel_diff": rel_upd,
+                "update_rtol": CKPT_UPDATE_RTOL,
+                "update_repeat_rel_diff": norm(upd0 - upd2) / norm(upd0),
+                "update_rel_size": norm(upd0) / norm(kend),
+                "step_s": [r[2] for r in runs],
+                "gmres_iters": [r[3] for r in runs],
+                "b1_launches": _b1_launches()})
+    del sys2, sol2
+    emit(rep)
+    if not equal:
+        raise AssertionError("checkpoint: restored arrays differ")
+    if not rel <= CKPT_STEP_RTOL:
+        raise AssertionError(f"checkpoint: steps differ by {rel:.3g}")
+    if not rel_upd <= CKPT_UPDATE_RTOL:
+        raise AssertionError(f"checkpoint: the steps' updates differ by "
+                             f"{rel_upd:.3g}")
+    if rep["b1_launches"] <= 0:
+        raise AssertionError("checkpoint: the steps launched no B1")
+    return rep
+
+
+def run_slice11(sys_, ml_sol) -> dict:
+    """The slice-11 phases on the solved cavity-128 (the sharded Vanka
+    and aux-field steps run inside dist_step, slice 10)."""
+    return {"diagnostics": phase_diagnostics(sys_, ml_sol),
+            "trace": phase_trace(sys_), "writers": phase_writers(ml_sol),
+            "checkpoint": phase_checkpoint(sys_, ml_sol)}
+
+
 def card_line() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4810,6 +5032,9 @@ def main() -> int:
         if args.profile:
             phase_profile(sys_, torch.as_tensor(
                 sys_.gather(-1), dtype=sys_.dtype, device="cuda"), "NS")
+        # slice 11: diagnostics, trace, writers and checkpoints on the
+        # solved cavity-128 (its state left as the solve left it)
+        s11 = run_slice11(sys_, ml_sol)
         galerkin = {"fields": {n: ml_sol.sol[-1][n].copy()
                                for n in ("u", "v", "p")},
                     "history": sys_.history}
@@ -4952,6 +5177,13 @@ def main() -> int:
         # cavity-128 Jacobian, float32, beside the CSR of the same block
         "dist_halo_launches": s10["halo"]["b1_launches"],
         "dist_step_launches": s10["step"]["b1_launches"],
+        # of which the slice-11 configs (the sharded Vanka and aux-field
+        # steps), and the slice-11 phases on cavity-128: profile_step's
+        # solve steps, the traced step, the two checkpoint steps
+        "dist_step_vanka_launches": s10["step"]["vanka_b1_launches"],
+        "diagnostics_launches": s11["diagnostics"]["b1_launches"],
+        "trace_launches": s11["trace"]["b1_launches"],
+        "checkpoint_launches": s11["checkpoint"]["b1_launches"],
         "dist_values": "f32",
         **{"dist_" + key: value for key, value in _b1_block_row(
             s10["halo"]["cases"]["cavity-128-f32"]["blocks_per_rank"],

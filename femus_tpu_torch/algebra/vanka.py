@@ -137,13 +137,15 @@ def lut_with_miss(pattern: EllPattern):
     return lut
 
 
-def _invert_blocks(A, dofs: torch.Tensor, slots: torch.Tensor, n: int):
+def _invert_blocks(data: torch.Tensor, dofs: torch.Tensor,
+                   slots: torch.Tensor, n: int):
     """Explicit batched block inverses (batched LU, then LU solves of the
     identity), so each smoother application is one batched dense matvec.
-    Padding rows/cols of a block become identity.  Blocks of bfloat16
-    values are inverted in float32 (there is no bfloat16 LU), and the
-    inverses stay float32, the dtype of the cycle's vectors."""
-    data = A.data.float() if A.data.dtype == torch.bfloat16 else A.data
+    ``slots`` index the flat operator values ``data``, ``data.numel()``
+    marking a miss.  Padding rows/cols of a block become identity.  Blocks
+    of bfloat16 values are inverted in float32 (there is no bfloat16 LU),
+    and the inverses stay float32, the dtype of the cycle's vectors."""
+    data = data.float() if data.dtype == torch.bfloat16 else data
     flat = torch.cat([data.reshape(-1), data.new_zeros(1)])
     Ab = flat[slots]                                   # (nb, bs, bs)
     rows_valid = dofs < n                              # (nb, bs)
@@ -173,7 +175,7 @@ def vanka_smoother(A, blocks: VankaBlocks, omega: float = 1.0,
         return x + omega * (upd if scale is None else scale * upd)
 
     if multiplicative:
-        per_color = [(d, *_invert_blocks(A, d, s, n))
+        per_color = [(d, *_invert_blocks(A.data, d, s, n))
                      for d, s in zip(blocks.color_dofs, blocks.color_slots)]
 
         def smooth(b, x):
@@ -185,7 +187,8 @@ def vanka_smoother(A, blocks: VankaBlocks, omega: float = 1.0,
         return smooth
 
     dofs = torch.cat(blocks.color_dofs)
-    Ainv, rv = _invert_blocks(A, dofs, torch.cat(blocks.color_slots), n)
+    Ainv, rv = _invert_blocks(A.data, dofs, torch.cat(blocks.color_slots),
+                              n)
     scale = blocks.scale.to(A.data.dtype)
 
     def smooth(b, x):

@@ -164,3 +164,11 @@ def marker_cloud_from_numpy(mesh, x: np.ndarray, elem: np.ndarray,
     return MarkerCloud(mesh, np.array(x, np.float64),
                        np.array(elem, np.int64),
                        {k: np.array(v) for k, v in (fields or {}).items()})
+
+
+def to_numpy(a) -> np.ndarray:
+    """A host numpy array of ``a``: tensors (on any device) are copied to
+    the host, everything else goes through ``np.asarray``."""
+    if torch.is_tensor(a):
+        return a.detach().cpu().numpy()
+    return np.asarray(a)

@@ -16,6 +16,8 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+from typing import Tuple
+
 import numpy as np
 
 from .basis import get_basis
@@ -52,6 +54,14 @@ def tabulate(geom: str, family: str, order) -> Tabulation:
                       np.asarray(b.eval_grad(pts), np.float64))
 
 
+@functools.lru_cache(maxsize=None)
+def tabulate_at(geom: str, family: str, pts_key) -> Tuple[np.ndarray, np.ndarray]:
+    """phi/dphi at arbitrary (hashable tuple-encoded) reference points."""
+    pts = np.asarray(pts_key, np.float64)
+    b = get_basis(geom, family)
+    return np.asarray(b.eval(pts)), np.asarray(b.eval_grad(pts))
+
+
 def face_trace_nodes(geom: str, family: str, iface: int):
     """(face_family, local volume-node ids) whose trace forms the face
     element's nodal basis, ordered per the face geometry's node order.
@@ -70,3 +80,29 @@ def face_trace_nodes(geom: str, family: str, iface: int):
     fam_nodes = g.family_nodes[family]
     inv = {int(n): i for i, n in enumerate(fam_nodes)}
     return face_family, np.array([inv[int(v)] for v in vol_bq], int)
+
+
+def inverse_map_newton(geom: str, coords, x_phys, xp, iters: int = 8):
+    """Invert the isoparametric (biquadratic) map: find ref xi with
+    F(xi) = x_phys, via Newton (the reference's marker inverse mapping,
+    PolynomialBases.cpp, Marker InverseMappingTEST, Marker.hpp:417).
+    Pure-array: ``xp`` is ``numpy`` (host arrays) or ``torch`` (tensors on
+    any device, differentiable).
+
+    coords: (nd, dim) physical node coords; x_phys: (dim,).
+    Returns xi (dim,).
+    """
+    b = get_basis(geom, "biquadratic")
+    g = GEOMS[geom]
+    if xp is np:
+        xi = np.asarray(g.center, coords.dtype)
+    else:
+        xi = xp.as_tensor(np.asarray(g.center), dtype=coords.dtype,
+                          device=coords.device)
+    for _ in range(iters):
+        phi = b.eval(xi[None, :], xp)[0]           # (nd,)
+        dphi = b.eval_grad(xi[None, :], xp)[0]     # (nd, dim)
+        r = phi @ coords - x_phys                  # (dim,)
+        J = dphi.T @ coords                        # J[a,b] = dx_b/dxi_a
+        xi = xi - xp.linalg.solve(J.T, r)
+    return xi

@@ -14,7 +14,13 @@ Problems:
 - :func:`cavity_assembler`: the Re = 100 lid-driven cavity Jacobian,
   Q2/Q2/P1dc, RCM-ordered mesh, interleaved dofs (n = 128: 181,250 rows);
 - :func:`dryrun_levels`: the two-level Q2/Q2/Q1 cavity of the JAX
-  package's ``dryrun_multichip`` (nu = 0.1, the first pressure dof pinned).
+  package's ``dryrun_multichip`` (nu = 0.1, the first pressure dof pinned);
+- :func:`fsi_bed`: fsi-bed, steady or transient (an elastic bed under a
+  fluid, the Petrov-Galerkin R·A·P transfers, material Vanka, the
+  K-cycle; the transient one's old fields are aux fields);
+- :func:`transient_ns_assembler`: the backward-Euler Navier-Stokes cavity
+  of the JAX package's ``examples/ex10_sharded_transient_particles.py``
+  (the old velocities as aux fields).
 """
 from __future__ import annotations
 
@@ -127,6 +133,191 @@ def galerkin_transfers(ml, asms, n_pad: int, device, dtype=torch.float64,
         masks[l] = c.dirichlet_mask.copy()
         pat = sched.coarse_pattern
     return transfers, masks
+
+
+# fsi-bed: the bed is the elements whose centroid has y < FSI_BED
+FSI_FIELDS = ("dx", "dy", "u", "v", "p")
+FSI_BED = 0.25
+# the lid speed and viscosity of the steady case: the JAX package's Newton
+# at 3 levels on the host needs more than 8 steps (it diverges) at nu 0.01
+# and lid 1, so nu 0.05, lid 0.2
+FSI_NU, FSI_LID = 0.05, 0.2
+# the transient case's horizontal kick of the bed and its time step
+FSI_KICK, FSI_DT = 0.5, 0.01
+# the pressure is pinned at the value dof of the last element (top right,
+# in the fluid on every level): inside the solid, where p = 0 holds
+# anyway, a pin leaves the fluid pressure's level free and the Newton
+# iteration wanders
+FSI_PIN = -3
+# relative Newton correction at which a level's loop stops
+FSI_NONLINEAR_TOL = 1e-5
+# FGMRES(60) restarts per linear solve: the finest fsi-bed-128 level needed
+# 800-1,800 iterations for rtol 1e-4
+FSI_MAX_OUTER = 40
+
+
+def fsi_bed(coarse: int, levels: int, device, dtype=torch.float64,
+            rtol: float = 1e-10, transient: bool = True, lid: float = None,
+            **config):
+    """fsi-bed through the systems layer: unit_box((coarse, coarse))
+    refined ``levels - 1`` times, an elastic bed (element centroid y <
+    FSI_BED, group 1) under a fluid, dx, dy, u, v biquadratic and p
+    disc_linear, pairs u->dx and v->dy, neo-Hookean lam = mu = 50, the
+    pressure pinned at dof FSI_PIN.  ``transient`` (fsi-bed-transient):
+    every wall clamped and no-slip, the bed kicked horizontally (u =
+    FSI_KICK sin(pi x) sin(pi y / FSI_BED)), fsi_transient_form (rho = 1,
+    nu = 0.05, theta = 1, dt = FSI_DT) through TransientMonolithicFSI, the
+    old fields (set by ``copy_to_old``) its aux fields.  Steady: lid-driven
+    (u = FSI_LID on the top wall, group 4; ``lid`` overrides it),
+    fsi_steady_form with nu = FSI_NU.  Solver: operator="bell",
+    interleaved dofs, material Vanka (2 elements a block), F ratchet,
+    K-cycle FGMRES(60) with FSI_MAX_OUTER restarts to ``rtol``, Newton to
+    FSI_NONLINEAR_TOL; ``config`` overrides fields of its SolverConfig.
+    Returns the initialised system."""
+    from ..mesh.multilevel import MultiLevelMesh
+    from ..systems.fsi import (MonolithicFSISystem, TransientMonolithicFSI,
+                               fsi_steady_form, fsi_transient_form)
+    from ..systems.problem import MultiLevelProblem
+    from ..systems.solution import MultiLevelSolution
+
+    mesh = unit_box((coarse, coarse), "quad")
+    cent = mesh.coords[mesh.conn].mean(axis=1)
+    mesh.elem_group = np.where(cent[:, 1] < FSI_BED, 1, 0).astype(np.int32)
+    ml_mesh = MultiLevelMesh(mesh, levels)
+    ml_sol = MultiLevelSolution(ml_mesh)
+    for v in ("dx", "dy", "u", "v"):
+        ml_sol.add_solution(v, "biquadratic", time_order=int(transient))
+    ml_sol.add_solution("p", "disc_linear")
+
+    def bc(var, x, grp, t):
+        if var == "p":
+            return (False, 0.0)
+        if var == "u" and grp == 4 and not transient:
+            return (True, FSI_LID if lid is None else lid)   # moving lid
+        return (True, 0.0)                        # clamped, no-slip
+
+    ml_sol.attach_bc(bc)
+    for v in FSI_FIELDS:
+        ml_sol.initialize(v)
+    if transient:
+        ml_sol.initialize("u", lambda x: np.where(
+            x[:, 1] < FSI_BED, FSI_KICK * np.sin(np.pi * x[:, 0])
+            * np.sin(np.pi * x[:, 1] / FSI_BED), 0.0))
+    ml_sol.generate_bdc()
+    ml_sol.fix_solution_at_point("p", FSI_PIN, 0.0)
+    ml_sol.pair_solution("u", "dx")
+    ml_sol.pair_solution("v", "dy")
+    prob = MultiLevelProblem(ml_mesh, ml_sol, quad_order="fifth")
+    if transient:
+        sys_ = prob.add_system(TransientMonolithicFSI, "FSI")
+        form = fsi_transient_form(
+            ("dx", "dy"), ("u", "v"), "p", solid_groups=(1,),
+            pres_family="disc_linear", rho_f=1.0, nu=0.05, rho_s=1.0,
+            lam=50.0, mu=50.0, solid_model="neo-hookean", theta=1.0)
+    else:
+        sys_ = prob.add_system(MonolithicFSISystem, "FSI")
+        form = fsi_steady_form(
+            ("dx", "dy"), ("u", "v"), "p", solid_groups=(1,),
+            pres_family="disc_linear", nu=FSI_NU, lam=50.0, mu=50.0,
+            solid_model="neo-hookean")
+    sys_.solid_groups = (1,)
+    sys_.add_unknown(*FSI_FIELDS)
+    sys_.set_assembly(form)
+    cfg = sys_.config
+    cfg.operator = "bell"
+    cfg.interleave_dofs = True
+    cfg.smoother = "vanka"
+    cfg.vanka_groups = "material"
+    cfg.vanka_block_elems = 2
+    cfg.mg_type = "F"
+    cfg.mg_cycle = "K"
+    cfg.restart = 60
+    cfg.max_outer = FSI_MAX_OUTER
+    cfg.rtol = rtol
+    cfg.nonlinear_tol = FSI_NONLINEAR_TOL
+    for key, value in config.items():
+        if not hasattr(cfg, key):
+            raise AttributeError(f"SolverConfig has no field {key!r}")
+        setattr(cfg, key, value)
+    if transient:
+        sys_.init_time(FSI_DT)
+    sys_.init(device=device, dtype=dtype)
+    if transient:
+        ml_sol.copy_to_old()
+    return sys_
+
+
+def ratchet(sys_, steps: int = 2) -> None:
+    """The F-cycle ratchet below the finest level, as the JAX package's
+    ``dryrun_multichip`` does it: ``steps`` solve steps on each level but
+    the finest, each level's state prolonged to the next (the R·A·P
+    coarse operator is singular at the zero state)."""
+    n_levels = len(sys_.ml_mesh.levels)
+    for l in range(n_levels - 1):
+        step = sys_.step_fn(l)
+        for _ in range(steps):
+            u = torch.as_tensor(sys_.gather(l), dtype=sys_.dtype,
+                                device=sys_.device)
+            out = step(u, None, sys_.aux_scalars, sys_._aux_arrays(l))
+            sys_.scatter(out.u.cpu().numpy(), l)
+        sys_.ml_sol.refine_from(l)
+        sys_._apply_bc_values(l + 1)
+
+
+def system_vanka_blocks(sys_, transfers) -> list:
+    """The Vanka blocks of every level of ``sys_``'s hierarchy whose
+    finest level is its finest mesh level (coarse->fine): each coarse
+    level's against its PtAP/R·A·P pattern, the finest against its
+    assembler's pattern; the system's block size and groups."""
+    from ..algebra.vanka import build_element_blocks
+    cfg = sys_.config
+    L = len(transfers) + 1
+    return [build_element_blocks(
+        sys_.assemblers[l], cfg.vanka_block_elems,
+        pattern=transfers[l][2].coarse_pattern if l < L - 1 else None,
+        groups=cfg.vanka_groups, device=sys_.device) for l in range(L)]
+
+
+NS_DT, NS_NU = 0.05, 0.05
+
+
+def transient_ns_form(dt: float = NS_DT, nu: float = NS_NU):
+    """Backward-Euler Navier-Stokes: (u - u_old)/dt + the steady terms
+    (ex10's form; the old velocities are the aux fields u_old, v_old)."""
+    steady = navier_stokes(("u", "v"), "p", nu=nu)
+
+    def form(ops, u, aux):
+        out = steady(ops, u, aux)
+        for c in ("u", "v"):
+            du = (ops.value("biquadratic", u[c])
+                  - ops.value("biquadratic", aux[c + "_old"])) / dt
+            out[c] = out[c] + ops.t("biquadratic", du)
+        return out
+
+    return form
+
+
+def transient_ns_assembler(n: int, device, dtype=torch.float64) -> Assembler:
+    """ex10's cavity on unit_box((n, n)): Q2/Q2/Q1, the lid (y = 1) moving
+    at u = 1, the first pressure dof pinned, aux fields u_old and v_old."""
+    asm = Assembler(unit_box((n, n), "quad"),
+                    [Unknown("u", "biquadratic"), Unknown("v", "biquadratic"),
+                     Unknown("p", "linear")],
+                    quad_order="fifth", device=device, dtype=dtype)
+    for c in ("u", "v"):
+        asm.add_aux_field(c + "_old", "biquadratic")
+    asm.set_volume_form(transient_ns_form())
+
+    def bc(var, x, grp, t):
+        if var == "p":
+            return False, 0.0
+        return True, (1.0 if var == "u" and abs(x[1] - 1.0) < 1e-9 else 0.0)
+
+    generate_bdc(asm, bc)
+    mask = asm.dirichlet_mask.copy()
+    mask[asm.offsets["p"]] = True
+    asm.set_dirichlet(mask, asm.dirichlet_values)
+    return asm
 
 
 # ---------------------------------------------------------------------------
@@ -314,29 +505,45 @@ def step_rank(group: RankGroup, configs: Sequence[dict]) -> list:
     return [sharded_step_case(group, **cfg) for cfg in configs]
 
 
+# the dryrun cavity's Vanka blocks (elements a block) and damping
+DRYRUN_VANKA_ELEMS, DRYRUN_VANKA_OMEGA = 2, 0.9
+
+
 def sharded_step_case(group: RankGroup, case: str, n: int, levels: int = 1,
                       outer: str = "cg", rtol: float = 1e-10,
                       restart: int = 30, max_outer: int = 40,
                       use_halo: bool = True, local_format: str = "auto",
-                      mg_cycle: str = "V", timed: bool = False) -> dict:
-    """One sharded step of ``case``: "poisson" (Q2 Poisson on
+                      mg_cycle: str = "V", timed: bool = False,
+                      smoother: str = "jacobi", steps: int = 1) -> dict:
+    """``steps`` sharded steps of ``case``: "poisson" (Q2 Poisson on
     unit_box((n, n)), f = 1; ``levels`` > 1 adds a Galerkin hierarchy of
-    that many levels with coarsest unit_box((n / 2^(levels-1))^2)) or
+    that many levels with coarsest unit_box((n / 2^(levels-1))^2));
     "dryrun" (the two-level NS cavity from unit_box((n, n)), GMRES with a
-    Jacobi-smoothed V-cycle).  Returns this rank's block of the new u, the
-    residual, the iterations, the seconds of the step and the B1 launches
-    of the calls.  ``timed``: the step (the production path, with the
-    overlapped halo SpMV) runs twice from the same state, cold then warm
-    (``step_s``), and then once more with the timing sections on
-    (``timed_step_s``, its sections in ``clock``, its largest difference
-    from the untimed solution in ``timed_diff``)."""
+    V-cycle; ``smoother`` "vanka": blocks of DRYRUN_VANKA_ELEMS elements
+    on both levels, damping DRYRUN_VANKA_OMEGA); "fsi" (the transient
+    :func:`fsi_bed` from unit_box((n, n)) with ``levels`` levels,
+    ratcheted below the finest level, then one Newton step of its first
+    theta-step at the finest level: the system's Petrov-Galerkin R·A·P
+    transfers (R != P^T), its old fields as aux fields and, with
+    ``smoother`` "vanka", its Vanka blocks on every level); "ns-aux" (ex10's backward-Euler cavity on unit_box((n, n)),
+    no transfers, its old velocities as aux fields, each step's result
+    the next step's old fields).  Returns this rank's block of the last
+    u, the residual, the iterations of each step, the seconds of the
+    first step and the B1 launches of the calls.  ``timed``: the step
+    (the production path, with the overlapped halo SpMV) runs twice from
+    the same state, cold then warm (``step_s``), and then once more with
+    the timing sections on (``timed_step_s``, its sections in ``clock``,
+    its largest difference from the untimed solution in
+    ``timed_diff``)."""
     from ..algebra.bell import spmv_bell_cuda
     from .spmd import make_sharded_step, padded_rows
 
     dev = group.device
     t0 = time.perf_counter()
     S = group.world_size
-    transfers, masks = (), ()
+    transfers, masks, vblocks, scalars = (), (), None, None
+    omega = DRYRUN_VANKA_OMEGA
+    aux_of = None                 # global u -> the aux fields of a step
     if case == "poisson":
         if levels > 1:
             from ..mesh.multilevel import MultiLevelMesh
@@ -361,41 +568,85 @@ def sharded_step_case(group: RankGroup, case: str, n: int, levels: int = 1,
         fine = asms[-1]
         transfers, masks = galerkin_transfers(
             ml, asms, padded_rows(fine.n_dofs, S), dev)
+        if smoother == "vanka":
+            from ..algebra.vanka import build_element_blocks
+            vblocks = [build_element_blocks(
+                asms[0], DRYRUN_VANKA_ELEMS,
+                pattern=transfers[0][2].coarse_pattern, device=dev),
+                build_element_blocks(fine, DRYRUN_VANKA_ELEMS, device=dev)]
+    elif case == "fsi":
+        sys_ = fsi_bed(n, levels, dev)
+        ratchet(sys_)
+        fine = sys_.assemblers[-1]
+        if fine.n_dofs % S:
+            raise ValueError(f"fsi: {fine.n_dofs} rows do not split into "
+                             f"{S} ranks")
+        transfers = sys_._transfers_for(levels - 1)
+        masks = sys_.masks[:levels - 1]
+        if smoother == "vanka":
+            vblocks = system_vanka_blocks(sys_, transfers)
+        omega = sys_.config.vanka_omega
+        scalars = sys_.aux_scalars
+        aux_old = sys_._aux_arrays(levels - 1)
+        aux_of = lambda u: aux_old                        # noqa: E731
+    elif case == "ns-aux":
+        fine = transient_ns_assembler(n, dev)
+        nd = fine.dofmaps["u"].n_dofs
+        ou, ov = fine.offsets["u"], fine.offsets["v"]
+        aux_of = lambda u: {"u_old": u[ou:ou + nd],       # noqa: E731
+                            "v_old": u[ov:ov + nd]}
     else:
         raise ValueError(case)
     step = make_sharded_step(fine, group, transfers=transfers,
                              dir_masks=masks, outer=outer, rtol=rtol,
                              restart=restart, max_outer=max_outer,
-                             smoother="jacobi", use_halo=use_halo,
-                             local_format=local_format, mg_cycle=mg_cycle)
-    u0 = torch.as_tensor(apply_dirichlet_values(fine, np.zeros(fine.n_dofs)),
-                         dtype=torch.float64, device=dev)
+                             smoother=smoother, aux_scalars=scalars,
+                             use_halo=use_halo, local_format=local_format,
+                             mg_cycle=mg_cycle, vanka_blocks=vblocks,
+                             vanka_omega=omega,
+                             with_aux=aux_of is not None)
+    if case == "fsi":
+        u0 = torch.as_tensor(sys_.gather(levels - 1), dtype=torch.float64,
+                             device=dev)
+    else:
+        u0 = torch.as_tensor(apply_dirichlet_values(fine,
+                                                    np.zeros(fine.n_dofs)),
+                             dtype=torch.float64, device=dev)
     u_blk = step.own(u0)
     setup_s = time.perf_counter() - t0
     before = spmv_bell_cuda.launches
 
-    def run():
+    def run(u_blk, u_glob):
         if dev.type == "cuda":
             torch.cuda.synchronize()
         t1 = time.perf_counter()
-        u1, res = step(u_blk)
+        args = () if aux_of is None else (aux_of(u_glob),)
+        u1, res = step(u_blk, *args)
         if dev.type == "cuda":
             torch.cuda.synchronize()
         return u1, res, time.perf_counter() - t1
 
-    u1, res, sec = run()
+    u1, res, sec = run(u_blk, u0)
+    iters = [step.info.iters]
+    converged = step.info.converged
     out = {"rank": group.rank, "rows": (step.rows.start, step.rows.stop),
-           "n": fine.n_dofs, "u": u1.cpu().numpy(), "residual": res,
-           "iters": step.info.iters, "converged": step.info.converged,
-           "setup_s": setup_s, "step_s": [sec], "note": step.note}
+           "n": fine.n_dofs, "setup_s": setup_s, "step_s": [sec],
+           "note": step.note}
     if timed:
-        out["step_s"].append(run()[2])      # warm, from the same state
+        out["step_s"].append(run(u_blk, u0)[2])   # warm, from the same state
         step.clock.on = True
-        u_t, _, out["timed_step_s"] = run()
+        u_t, _, out["timed_step_s"] = run(u_blk, u0)
         step.clock.on = False
         out["clock"] = dict(step.clock.seconds)
         out["timed_diff"] = float((u_t - u1).abs().max())
-    out["b1_launches"] = spmv_bell_cuda.launches - before
+    for _ in range(steps - 1):
+        u_glob = group.all_gather(u1)[:fine.n_dofs]
+        u1, res, _ = run(u1, u_glob)
+        iters.append(step.info.iters)
+        converged = converged and step.info.converged
+    out.update({"u": u1.cpu().numpy(), "residual": res, "iters": iters[-1],
+                "step_iters": iters, "converged": converged,
+                "b1_launches": spmv_bell_cuda.launches - before})
     return out
 
 

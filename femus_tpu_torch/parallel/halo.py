@@ -91,23 +91,14 @@ def build_halo_plan(pattern: EllPattern, n_shards: int) -> HaloPlan:
     cols = pattern.cols
     owner = cols // R                                  # (n, w)
     need = [[None] * n_shards for _ in range(n_shards)]
-    m = 1
     for s in range(n_shards):
         blk_cols = cols[s * R:(s + 1) * R]
         blk_owner = owner[s * R:(s + 1) * R]
         for t in range(n_shards):
             if t == s:
                 continue
-            ghost = np.unique(blk_cols[blk_owner == t])
-            need[s][t] = ghost
-            m = max(m, len(ghost))
-    send_idx = np.zeros((n_shards, n_shards, m), np.int32)
-    for s in range(n_shards):
-        for t in range(n_shards):
-            if t == s or need[s][t] is None:
-                continue
-            g = need[s][t]
-            send_idx[t, s, :len(g)] = g - t * R        # t sends to s
+            need[s][t] = np.unique(blk_cols[blk_owner == t])
+    m, send_idx, offs, off_send = _schedule(need, n_shards, R)
     # remap columns to local frame: own -> [0, R); ghost from t -> R + t*m + k
     # (ghost lists are sorted-unique, so position = searchsorted)
     cols_local = np.empty_like(cols)
@@ -134,7 +125,22 @@ def build_halo_plan(pattern: EllPattern, n_shards: int) -> HaloPlan:
     bnd_rows = np.full((n_shards, B), R, np.int32)     # R = drop sentinel
     for s, b in enumerate(bnd_lists):
         bnd_rows[s, :len(b)] = b
+    return HaloPlan(n_shards, R, m, send_idx, cols_local, n, bnd_rows,
+                    offs, off_send)
 
+
+def _schedule(need, n_shards: int, R: int):
+    """(m, send_idx, offs, off_send) of the exchange in which rank s
+    receives from rank t the sorted global ids ``need[s][t]`` (owned by t;
+    None or empty: nothing), each pair's list padded to m slots."""
+    m = max([1] + [len(g) for row in need for g in row if g is not None])
+    send_idx = np.zeros((n_shards, n_shards, m), np.int32)
+    for s in range(n_shards):
+        for t in range(n_shards):
+            if t == s or need[s][t] is None:
+                continue
+            g = need[s][t]
+            send_idx[t, s, :len(g)] = g - t * R        # t sends to s
     # offset schedule: active offsets d = dst - src, and per offset the
     # (S, m_d) source-local indices src ships to src + d
     offs = sorted({s - t for s in range(n_shards) for t in range(n_shards)
@@ -150,8 +156,39 @@ def build_halo_plan(pattern: EllPattern, n_shards: int) -> HaloPlan:
             if lens[src]:
                 sa[src, :lens[src]] = need[src + d][src] - src * R
         off_send.append(sa)
-    return HaloPlan(n_shards, R, m, send_idx, cols_local, n, bnd_rows,
-                    tuple(offs), tuple(off_send))
+    return m, send_idx, tuple(offs), tuple(off_send)
+
+
+def build_gather_plan(needs, rows_per_shard: int) -> HaloPlan:
+    """The exchange that brings each rank ``s`` the entries at the global
+    ids ``needs[s]`` (any ids outside its own rows [s*R, (s+1)*R), sorted
+    unique), owner by owner, into the ghost frame of S*m slots: id g owned
+    by rank t lands in slot ``t*m + k``, k its position among ``needs[s]``'s
+    ids owned by t (:func:`gather_slots`).  A plan without an operator:
+    ``cols_local`` and ``bnd_rows`` are empty."""
+    S, R = len(needs), rows_per_shard
+    need = [[None] * S for _ in range(S)]
+    for s, g in enumerate(needs):
+        g = np.asarray(g, np.int64)
+        for t in range(S):
+            if t != s:
+                need[s][t] = g[(g >= t * R) & (g < (t + 1) * R)]
+    m, send_idx, offs, off_send = _schedule(need, S, R)
+    return HaloPlan(S, R, m, send_idx, np.zeros((0, 0), np.int32), S * R,
+                    np.zeros((S, 0), np.int32), offs, off_send)
+
+
+def gather_slots(plan: HaloPlan, needs_s: np.ndarray) -> np.ndarray:
+    """The ghost-frame slot of each id of ``needs_s`` (sorted unique, as
+    given to :func:`build_gather_plan`) in its rank's exchange."""
+    R, m = plan.rows_per_shard, plan.m
+    g = np.asarray(needs_s, np.int64)
+    owner = g // R
+    slots = np.empty(len(g), np.int64)
+    for t in np.unique(owner):
+        sel = owner == t
+        slots[sel] = t * m + np.arange(int(sel.sum()))
+    return slots
 
 
 def choose_transport(plan: HaloPlan, group: RankGroup,
@@ -212,9 +249,12 @@ class HaloExchange:
                     self.recvs.append((s - d, m_d))
 
     def start(self, x_blk: torch.Tensor) -> Callable[[], torch.Tensor]:
+        """Post the exchange of the block ``x_blk`` ((R,), or (R, ...):
+        whole rows travel) and return its ``wait``."""
         S, m = self.plan.n_shards, self.plan.m
+        tail = tuple(x_blk.shape[1:])
         if self.transport == "none":
-            xg = x_blk.new_zeros(S * m)
+            xg = x_blk.new_zeros((S * m,) + tail)
             return lambda: xg
         if self.transport == "all_to_all":
             send = x_blk[self.send_idx]
@@ -227,12 +267,12 @@ class HaloExchange:
 
             return wait
         # ppermute: one batched isend/irecv per active offset
-        xg = x_blk.new_zeros(S * m)
+        xg = x_blk.new_zeros((S * m,) + tail)
         ops, landing = [], []
         for peer, ix in self.sends:
             ops.append(dist.P2POp(dist.isend, x_blk[ix], peer))
         for peer, m_d in self.recvs:
-            rb = x_blk.new_empty(m_d)
+            rb = x_blk.new_empty((m_d,) + tail)
             ops.append(dist.P2POp(dist.irecv, rb, peer))
             landing.append((peer * m, rb))
         reqs = dist.batch_isend_irecv(ops) if ops else []

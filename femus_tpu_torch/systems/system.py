@@ -697,11 +697,61 @@ class System:
         out = {}
         for unk in self.unknowns:
             off = a.offsets[unk.name]
-            n = self.ml_sol.n_dofs(unk.name, level)
+            n = self.dofmap_size(unk.name, level)
             e = np.linalg.norm(delta[off:off + n])
             s = np.linalg.norm(u[off:off + n])
             out[unk.name] = float(e / max(s, 1e-250))
         return out
+
+    def profile_step(self, level: int = -1, reps: int = 3) -> Dict[str, float]:
+        """Per-phase wall-time split of one solve step at ``level`` —
+        assembly / Galerkin coarsening into ``level`` (its transfer's PtAP
+        or R A P schedule; only with ``use_mg`` and ``level`` > 0) / the
+        whole solve step — the split the reference prints per run
+        (LinearImplicitSystem.cpp:326,372,406 assembly vs preparation vs
+        solver time; NonLinearImplicitSystem.cpp:89-98).  Each phase runs
+        once to warm up, then ``reps`` times at the CURRENT solution state,
+        each call ending in ``torch.cuda.synchronize()`` on the card; the
+        best is kept.  The phases overlap (the step assembles and
+        coarsens too), so the split is diagnostic, not additive.  Returns
+        seconds under the keys ``assembly_s``, ``coarsen_s`` and
+        ``solve_step_s``, also written into ``self.timing``."""
+        n_levels = len(self.ml_mesh.levels)
+        if level < 0:
+            level += n_levels
+        a = self.assemblers[level]
+        assemble = a.make_assemble_fn(pass_tables=True)
+        u = torch.as_tensor(self.gather(level), dtype=self.dtype,
+                            device=self.device)
+        tabs = a.device_tables_cached()
+        aux = self._aux_arrays(level)
+        scal = self.aux_scalars
+        cuda = self.device.type == "cuda"
+
+        def best(fn):
+            fn()
+            ts = []
+            for _ in range(reps):
+                t0 = _time.perf_counter()
+                fn()
+                if cuda:
+                    torch.cuda.synchronize(self.device)
+                ts.append(_time.perf_counter() - t0)
+            return min(ts)
+
+        out = {"assembly_s": best(lambda: assemble(u, tabs, scal, aux))}
+        _, data = assemble(u, tabs, scal, aux)
+        if self.config.use_mg and level > 0:
+            sched = self._transfers_for(level)[-1][2]
+            if sched is not None:
+                out["coarsen_s"] = best(lambda: sched.apply(data))
+        step = self.step_fn(level)
+        out["solve_step_s"] = best(lambda: step(u, tabs, scal, aux))
+        self.timing.update(out)
+        return out
+
+    def dofmap_size(self, name: str, level: int) -> int:
+        return self.ml_sol.n_dofs(name, level)
 
     def _levels_to_solve(self):
         n_levels = len(self.ml_mesh.levels)

@@ -355,3 +355,26 @@ def test_slice9_entry_points_raise_without_cuda(no_cuda):
             call()
         call(device="cpu")
     assert cloud.elem[0] >= 0
+
+
+def test_slice11_modules_are_covered():
+    """The writers, the utilities and the sharded step are among the
+    modules the import checks walk (no jax, no femus_tpu)."""
+    mods = set(_modules())
+    for m in ("io", "io.vtk", "io.gmv", "io.xdmf", "utils.checkpoint",
+              "utils.config", "utils.debug", "utils.files",
+              "utils.parsed_function", "utils.telemetry", "parallel.spmd"):
+        assert f"femus_tpu_torch.{m}" in mods, m
+
+
+def test_importing_the_writers_needs_no_h5py():
+    """``femus_tpu_torch.io.xdmf`` imports h5py only inside the functions
+    that write or read the heavy data: the card's machine has no h5py."""
+    code = ("import sys, femus_tpu_torch.io.xdmf, femus_tpu_torch.io, "
+            "femus_tpu_torch.utils.debug\n"
+            "print(sorted(k for k in sys.modules if k.split('.')[0] == "
+            "'h5py'))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]", out.stdout

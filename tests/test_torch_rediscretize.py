@@ -51,6 +51,19 @@ from cavity_cases import check_cavity_rediscretized
 from cavity_cases import close as _close
 from cavity_cases import mod as _mod
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread in this module: beside the other test workers
+    and the spawned ranks, the many small torch ops of these cases spend
+    their time in thread barriers otherwise (the 3-D patch solve took
+    minutes under a parallel run, seconds alone)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 PI = np.pi
 
 

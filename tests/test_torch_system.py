@@ -14,6 +14,18 @@ import pytest
 import torch
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread in this module: beside the other test workers
+    and the spawned ranks, the many small torch ops of these cases spend
+    their time in thread barriers otherwise (the 3-D patch solve took
+    minutes under a parallel run, seconds alone)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _bc(var, x, grp, t):
     if var == "p":
         return (False, 0.0)
