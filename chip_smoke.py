@@ -187,8 +187,8 @@ mesh refinement with multigrid across the AMR levels (kernel B1):
                     on every such level (``b1_tally``), u, v and p within
                     1e-3 of cavity-128's Galerkin solution;
 30. amr_cycle, amr_kernel, amr — after phase 23: amr-lshape (see
-                    ``lshape_mesh``, ``lshape_exact``, constants AMR_*), 8
-                    cycles of solve_mg_amr over the chain (float64,
+                    ``lshape_mesh``, ``lshape_exact``, constants AMR_*),
+                    AMR_CYCLES cycles of solve_mg_amr over the chain (float64,
                     Chebyshev V-cycle CG to 1e-10, B1 on every reduced level
                     but the LU-solved coarsest), Kelly, refine the worst 20 %:
                     per cycle elements, dofs, hanging dofs, iterations,
@@ -248,7 +248,7 @@ NONLOCAL_*):
                     64x64, Q2 Poisson, Jacobi-CG on the BELL frame to
                     1e-12; gate: L2 order > 2.5;
 38. sw            — sw-128, Crank-Nicolson, dt 0.01, no multigrid: the lake
-                    at rest (h, u, v over a bump, 198,147 dofs, 5 steps;
+                    at rest (h, u, v over a bump, 198,147 dofs, 2 steps;
                     gate: still to 1e-8) and a tracer in a uniform drift
                     (66,049 dofs, 40 steps; gate: centre of mass at
                     (0.55 +- 0.04, 0.5 +- 0.02));
@@ -275,13 +275,15 @@ MARKERS_*, MAGNETIC_COUNT, MPM_*, MPM_FSI_*, PROJ_*, UQ_*):
                     boundary faces), every solve meets its rtol, L2 order
                     > 2.7, B1 launched;
 41. markers       — markers-256: 2^20 markers in the disk of radius 0.4 on
-                    unit_box((256,256)): locate on the card, one RK4
-                    revolution through the Q2 rigid rotation in 400 steps;
-                    a 4,096-marker subset located and advected (1/10
+                    unit_box((256,256)): locate on the card, a quarter of
+                    an RK4 revolution through the Q2 rigid rotation in 100
+                    steps (400 a revolution);
+                    a 4,096-marker subset located and advected (1/20
                     revolution) on the host too; ex05's magnetic capture
-                    (a wire at (0.95, 0.5), capped drift) on 10^5 markers;
-                    gates: every marker located before and after, back at
-                    its start to 1e-6, the subset's owners equal and its
+                    (a wire at (0.95, 0.5), capped drift, 50 steps) on
+                    10^5 markers; gates: every marker located before and
+                    after, at the exact rotated start to 1e-6, the
+                    subset's owners equal and its
                     positions within 1e-12, the mean distance to the wire
                     falls;
 42. mpm           — mpm-block-128: the elastic block of tests/test_mpm.py
@@ -293,7 +295,7 @@ MARKERS_*, MAGNETIC_COUNT, MPM_*, MPM_FSI_*, PROJ_*, UQ_*):
                     stops the fall (see phase_mpm), det F in (0.5, 2),
                     card = host to MPM_REF_TOL;
 43. mpm_fsi       — mpm-fsi-sinking-64: ex06 at n = 64 (37,507 dofs, 1,482
-                    material points), 3 implicit steps: assembly with the
+                    material points), 1 implicit step: assembly with the
                     particle form, P2G and G2P on the card, scipy spsolve
                     on the host (seconds apart); n = 6 for 2 steps on the
                     card and the host; gates: Newton meets newton_tol every
@@ -356,7 +358,7 @@ line names the backend and that the ranks share the card:
                     B2 on each slab, skeleton closed by one all_reduce;
                     gate against the global B2 at 1e-5 of max(|A||x|);
                     each slab's B2 beside one CSR product of the slab;
-50. dist_markers  — markers-256's 2^20 markers, 40 RK4 steps over 4 ranks
+50. dist_markers  — markers-256's 2^20 markers, 10 RK4 steps over 4 ranks
                     with all_to_all migration: migrations and drops (0)
                     per step; elements equal and positions within 1e-12 of
                     the one-rank cloud;
@@ -393,6 +395,49 @@ the checkpoints, on the solved cavity-128 right after phase 3
                     CKPT_STEP_RTOL; one from each kicked state (free dofs
                     scaled by 1 + CKPT_KICK): updates within
                     CKPT_UPDATE_RTOL.
+
+Slice 12, the golden apps and the ten examples, after phase 28
+(``run_slice12``; constants CHANNEL_*, FSI_CHANNEL_*, EX08_DISK_N, EX03_*,
+EXAMPLES_*).  The reference meshes (nsbenc.neu, fsifirst.neu, disk.neu)
+are absent: ``channel_neu`` writes a Turek-style channel (2.2 x 0.41, a
+square obstacle near (0.2, 0.2), optionally a beam behind it; not the
+benchmark geometry) and ``disk_neu`` the unit disk, and the apps and ex08
+read those files:
+
+53. channel_setup, channel_kernel, channel_main — ns-channel, the JAX main
+                    path's own builder: apps.ns_bench.make_ns_system
+                    (levels 4, rtol 1e-4, interleave=True, then operator
+                    "bell", as bench.py's bench_newton_step) on the 44 x 8
+                    channel (finest 22,272 quads, U, V Q2 and P P1dc:
+                    246,784 dofs), float32, the F-cycle ratchet with up to
+                    CHANNEL_NEWTON Newton steps a level; B1 on the channel
+                    Jacobian at the initial state against its plain version
+                    (f32, bf16, f64 random; cold time, bound, CSR, fill);
+                    Newton steps, GMRES iterations, seconds and ||R(u)|| by
+                    level, B1 launches, peak bytes; then
+                    make_temperature_system in the solved velocity (float64)
+                    with its iterations, residual and ||T||; gates: every
+                    linear solve meets rtol, the finest ||R(u)|| falls
+                    10^3x from the initial guess, the temperature meets
+                    1e-10, B1 launched;
+54. fsi_channel   — apps.fsi_bench.make_fsi_system on the channel with the
+                    beam (group 5), FSI_CHANNEL_LEVELS levels (27,344
+                    dofs; see FSI_CHANNEL_LIN_ITERS for why not 3),
+                    K-cycle, the reference's inexact Newton (one FGMRES(20)
+                    cycle a step), operator "bell", float64: set-up and
+                    solve seconds, Newton steps, iterations and ||R(u)|| by
+                    level, the beam tip's DY, B1 launches; gates: the
+                    finest ||R(u)|| falls 10^3x, det F > 0 on the beam, B1
+                    launched;
+55. examples      — femus_tpu_torch.examples ex01-ex10 at their JAX
+                    defaults on the card in float64 (ex08 on disk_neu's disk
+                    of EX08_DISK_N coarse cells at EX_LEVELS 3, EX_STEPS 8;
+                    ex10 on EX10_RANKS ranks), their printed
+                    lines and seconds; gates: the claim each prints (L2
+                    orders, convergence, capture, the sinking block, finite
+                    PCE moments, ex08-ex10's own assertions; ex03 see
+                    EX03_DEFAULT_EPS), and ex01, ex02, ex04 and ex07 on the
+                    host agree with the card to EXAMPLES_HOST_RTOL.
 
 Then the card's name and power limit, the kernel table as one JSON line,
 and the final status line.
@@ -482,8 +527,9 @@ CONV_COARSE, CONV_LEVELS = 4, 6
 # package too (15, 18, 18 at 21k, 34k, 54k dofs on the host,
 # tools/amr_lshape_iterations.py; 21 at 87k), so there a cycle may take
 # at most AMR_ITER_GROWTH more than the one before
-# AMR_CYCLES: 7 since slice 11 (8 before; cut for the run's clock)
-AMR_COARSE, AMR_CYCLES, AMR_FRACTION = 32, 7, 0.2
+# AMR_CYCLES: a cut in depth for the run's clock (each cycle's host
+# set-up grows with the chain)
+AMR_COARSE, AMR_CYCLES, AMR_FRACTION = 32, 5, 0.2
 AMR_TOL, AMR_MAX_ITERS, AMR_CONFORMING_MAX_DOFS = 1e-10, 15, 20000
 AMR_ITER_GROWTH = 4
 
@@ -508,15 +554,18 @@ FORMS_COARSE, FORMS_LEVELS, WILLMORE_R = 8, 5, 1.2
 # the order; sw-128 (lake at rest: 198,147 dofs; tracer: 66,049);
 # nonlocal-64 (4,225 dofs, 1.30 M nonzeros, rows of up to 357)
 SURF_N, CONF_N, MIXED_N = 256, 128, 128
-SW_N, SW_DT, SW_LAKE_STEPS, SW_TRACER_STEPS = 128, 0.01, 5, 40
+# SW_LAKE_STEPS: a cut in depth for the run's clock (the lake at rest
+# stays at rest; two steps show that a step keeps it)
+SW_N, SW_DT, SW_LAKE_STEPS, SW_TRACER_STEPS = 128, 0.01, 2, 40
 NONLOCAL_N, NONLOCAL_DELTA = 64, 0.1
 
 
 # slice 9: gambit-poisson-256 (a unit_box((32,32)) Q2 mesh written as a
 # Gambit .neu file with the groups NEU_GROUPS, read back, NEU_LEVELS levels:
 # finest 256x256, 263,169 dofs); markers-256 (2^20 markers in a disk on
-# unit_box((256,256)), one RK4 revolution in MARKERS_STEPS steps, a host
-# subset of MARKERS_SUBSET; ex05's capture on MAGNETIC_COUNT markers);
+# unit_box((256,256)), MARKERS_TURN of a revolution at MARKERS_STEPS RK4
+# steps a revolution, a host subset of MARKERS_SUBSET; ex05's capture on
+# MAGNETIC_COUNT markers);
 # mpm-block-128 (the explicit block at 128x128, MPM_STEPS steps of MPM_DT
 # under gravity MPM_G; the 8x8 block MPM_REF_STEPS steps on card and host,
 # held to MPM_REF_TOL: the card's atomics reorder the P2G sums, ~1e-15 a
@@ -529,14 +578,17 @@ NONLOCAL_N, NONLOCAL_DELTA = 64, 0.1
 # above level 5's, 0.00373 against 0.00239 in a host float64 run, and at
 # 10^7 below it, 0.00133 against 0.00175)
 NEU_COARSE, NEU_LEVELS, NEU_GROUPS = 32, 4, (1, 2, 3, 4)
-# (mpm-fsi-sinking-64 takes 3 steps for the whole run's clock, 5 before
-# the multi-device phases joined it; markers-256 cannot take fewer steps a
-# revolution: at 200 the 4-hop walk loses a third of the markers)
+# (cuts in depth for the run's clock: mpm-fsi-sinking-64 takes
+# MPM_FSI_STEPS steps; markers-256 cannot take fewer steps a revolution, at
+# 200 the 4-hop walk loses a third of the markers, so it runs a quarter
+# turn, MARKERS_TURN; ex05's capture on MAGNETIC_COUNT markers runs
+# MAGNETIC_STEPS steps of 0.02)
 MARKERS_N, MARKERS_COUNT, MARKERS_STEPS = 256, 1 << 20, 400
-MARKERS_SUBSET, MAGNETIC_COUNT = 4096, 100_000
+MARKERS_SUBSET, MAGNETIC_COUNT, MAGNETIC_STEPS = 4096, 100_000, 50
+MARKERS_TURN = 0.25
 MPM_N, MPM_STEPS, MPM_DT, MPM_G = 128, 500, 2.5e-4, -1.0
 MPM_REF_STEPS, MPM_REF_TOL = 50, 1e-10
-MPM_FSI_N, MPM_FSI_STEPS, MPM_FSI_NEWTON = 64, 3, 8
+MPM_FSI_N, MPM_FSI_STEPS, MPM_FSI_NEWTON = 64, 1, 8
 PROJ_SRC, PROJ_DST, PROJ_SHIFT = 256, 200, (0.1, -0.05)
 UQ_N, UQ_NQ, UQ_DEG = 128, 7, 4
 UQ_SAMPLES, UQ_SG_LEVELS = 10 ** 7, (5, 6, 7)
@@ -781,18 +833,19 @@ def b1_rows(data, pattern, dev, phase: str, dtypes) -> dict:
         xv = x.double() if dt == torch.float64 else x
         row = b1_held(op, xv, 1e-12 if dt == torch.float64 else 1e-5)
         isz, xsz = op.vals.element_size(), xv.element_size()
-        # what the kernel reads and writes: values, int32 columns, slice
-        # pointers, the row order, x and y, each once
-        nbytes = (dev.total * (isz + 4) + (dev.n_slices + 1) * 4
-                  + dev.n_slices * 32 * 4 + 2 * n * xsz)
-        flops = 2 * dev.total
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = flops / (F64_FLOPS_PER_S if dt == torch.float64
-                         else F32_FLOPS_PER_S) * 1e3
-        # what the matvec itself needs: each nonzero's value and int32
-        # column id, x and y once; the bound above also counts the fill
+        peak = F64_FLOPS_PER_S if dt == torch.float64 else F32_FLOPS_PER_S
+        # the bound: what the matvec itself needs, each nonzero's value and
+        # int32 column id, x and y once, and two flops a nonzero
         nnz_bytes = nnz * (isz + 4) + 2 * n * xsz
-        t_nnz = nnz_bytes / HBM_BYTES_PER_S * 1e3
+        t_bytes = nnz_bytes / HBM_BYTES_PER_S * 1e3
+        t_ops = 2 * nnz / peak * 1e3
+        # what the kernel's plan makes it read and write: every slot of
+        # the slices (the fill's padding too), slice pointers, the row
+        # order, x and y, each once
+        slot_bytes = (dev.total * (isz + 4) + (dev.n_slices + 1) * 4
+                      + dev.n_slices * 32 * 4 + 2 * n * xsz)
+        t_slots = max(slot_bytes / HBM_BYTES_PER_S,
+                      2 * dev.total / peak) * 1e3
         # the operator (52 MB in float32) is about the size of the L2 and
         # a call is shorter than its Python wrapper on a slow host: the
         # reported time is the cold one, in turns (kernel, plain, kernel)
@@ -803,14 +856,15 @@ def b1_rows(data, pattern, dev, phase: str, dtypes) -> dict:
         row.update({"ms": ms, "first_ms": first_ms, "plain_ms": plain_ms,
                     "back_to_back_ms": time_ms(
                         lambda: bell.spmv_bell_cuda(op, xv)),
-                    "bytes": nbytes,
-                    "operator_bytes": nbytes - 2 * n * xsz,
+                    "bytes": nnz_bytes,
                     "bound_ms": max(t_bytes, t_ops),
                     "bound_by": "bytes" if t_bytes >= t_ops
                     else "operations",
                     "pct_of_bound": 100.0 * max(t_bytes, t_ops) / ms,
-                    "nnz_bytes": nnz_bytes, "bound_nnz_ms": t_nnz,
-                    "pct_of_nnz_bound": 100.0 * t_nnz / ms})
+                    "slot_bytes": slot_bytes,
+                    "operator_bytes": slot_bytes - 2 * n * xsz,
+                    "bound_slots_ms": t_slots,
+                    "pct_of_slots_bound": 100.0 * t_slots / ms})
         if dt in (torch.float32, torch.float64):
             # library yardstick: one torch.sparse CSR matvec of the same
             # matrix in the same types
@@ -1565,6 +1619,12 @@ def phase_lattice_reference() -> None:
         raise AssertionError(f"card and host lattice paths differ: {rep}")
 
 
+# Newton steps of each cycles_reference route (a cut in depth for the
+# run's clock: the routes agree to their linear tolerance at every Newton
+# step)
+CYCLES_NEWTON = 2
+
+
 def phase_cycles_reference() -> None:
     """The small cavity on the card through the solver routes beside the
     V-cycle: each must converge and agree with the V-cycle solve.  The
@@ -1573,8 +1633,10 @@ def phase_cycles_reference() -> None:
     pattern, B1 on the two finer levels), and that hierarchy built with
     compute_dtype=bfloat16; the matrix-free hierarchy built with
     compute_dtype=bfloat16; the V-cycle built with bfloat16
-    (``bf16_newton``).  Then a Neumann problem through a face form:
-    operator="matrix_free" against "assembled"."""
+    (``bf16_newton``).  Routes that differ only in the cycle or in the
+    compute type share one System, reset to its initial state.  Then a
+    Neumann problem through a face form: operator="matrix_free" against
+    "assembled"."""
     from femus_tpu_torch.systems.system import launch_counts
 
     stacked = {"interleave_dofs": False}
@@ -1586,11 +1648,26 @@ def phase_cycles_reference() -> None:
               "matrix_free_bf16": {"operator": "matrix_free", **stacked}}
     bf16_builder = {"rediscretize_bf16": "build_hierarchy_from_ops",
                     "matrix_free_bf16": "build_hierarchy_matfree"}
+    built = {}
+
+    def system_for(config):
+        """The cavity of ``config``, built once per set-up and reset to
+        its initial state, its steps to be built anew."""
+        setup = {k: v for k, v in config.items() if k != "mg_cycle"}
+        key = tuple(sorted(setup.items()))
+        if key not in built:
+            s, m = cavity_system(8, 3, "cuda", torch.float32, rtol=1e-6,
+                                 max_nonlinear=CYCLES_NEWTON, **setup)
+            built[key] = (s, m, s.snapshot())
+        s, m, start = built[key]
+        s.config.mg_cycle = config.get("mg_cycle", "V")
+        s.reset(start)
+        return s, m
+
     rep = {"phase": "cycles_reference"}
     ref = None
     for name, config in routes.items():
-        sys_, ml_sol = cavity_system(8, 3, "cuda", torch.float32, rtol=1e-6,
-                                     max_nonlinear=4, **config)
+        sys_, ml_sol = system_for(config)
         n0 = launch_counts()["bell_spmv"]
         with (cycle_dtype(bf16_builder[name], torch.bfloat16)
               if name in bf16_builder else contextlib.nullcontext()):
@@ -1607,8 +1684,7 @@ def phase_cycles_reference() -> None:
         if name.startswith("rediscretize"):
             rep[name]["bell_levels"] = sorted(_bell_rows(sys_))
     # the bf16 route: the V-cycle built with compute_dtype=bfloat16
-    sys_, ml_sol = cavity_system(8, 3, "cuda", torch.float32, rtol=1e-6,
-                                 max_nonlinear=4)
+    sys_, ml_sol = system_for({})
     n0 = launch_counts()["bell_spmv"]
     hist = bf16_newton(sys_)
     fields = np.concatenate([ml_sol.sol[-1][n] for n in ("u", "v", "p")])
@@ -2556,19 +2632,11 @@ def lshape_mesh(n: int):
     """(-1, 1)^2 minus (0, 1)^2 from box((n, n)) (tests/test_amr.py's
     L-shape at n = 2 before its refine), one boundary group."""
     from femus_tpu_torch.mesh.generation import box
-    from femus_tpu_torch.mesh.mesh import Mesh, build_boundary_faces
 
     m0 = box((n, n), [(-1.0, 1.0), (-1.0, 1.0)], "quad")
     cent = m0.coords[m0.conn[:, :4]].mean(axis=1)
-    keep = ~((cent[:, 0] > 0) & (cent[:, 1] > 0))
-    used = np.unique(m0.conn[keep])
-    remap = -np.ones(m0.coords.shape[0], np.int64)
-    remap[used] = np.arange(len(used))
-    m = Mesh(dim=2, geom="quad", coords=m0.coords[used],
-             conn=remap[m0.conn[keep]].astype(np.int32),
-             elem_group=m0.elem_group[keep])
-    build_boundary_faces(m, group_fn=lambda c: 1)
-    return m
+    return _submesh(m0, ~((cent[:, 0] > 0) & (cent[:, 1] > 0)),
+                    lambda c: 1)
 
 
 def lshape_exact(x, xp=np):
@@ -3584,6 +3652,71 @@ def write_neu(mesh, path: str, family: str = "biquadratic",
         fh.write("\n".join(out) + "\n")
 
 
+def _submesh(m0, keep, group_fn):
+    """The elements ``keep`` of the box mesh ``m0`` (nodes renumbered
+    compactly) with boundary faces labelled by ``group_fn``."""
+    from femus_tpu_torch.mesh.mesh import Mesh, build_boundary_faces
+
+    used = np.unique(m0.conn[keep])
+    remap = -np.ones(m0.coords.shape[0], np.int64)
+    remap[used] = np.arange(len(used))
+    m = Mesh(dim=2, geom="quad", coords=m0.coords[used],
+             conn=remap[m0.conn[keep]].astype(np.int32),
+             elem_group=m0.elem_group[keep])
+    build_boundary_faces(m, group_fn=group_fn)
+    return m
+
+
+def channel_neu(path: str, nx: int, ny: int, solid: bool = False) -> str:
+    """Write a Turek-style channel as a Gambit file at ``path`` (the mesh
+    the ported apps read in place of the absent nsbenc.neu and
+    fsifirst.neu; not the benchmark geometry): box((nx, ny)) on (0, 2.2) x
+    (0, 0.41) without the cells whose centroids lie within 0.06 of (0.2,
+    0.2) in the max norm (at 44 x 8 a square obstacle of 2 x 2 cells, 0.1 x
+    0.1025, where Turek has a cylinder of radius 0.05); boundary groups 1
+    inflow x = 0, 2 outflow x = 2.2, 3 the walls y = 0 and y = 0.41, 4 the
+    obstacle (the groups the apps' conditions read).  ``solid``: the cells
+    of the obstacle's lower cell row with centroid x in (0.25, 0.6) get
+    element group 5 (fsi_bench.SOLID_GROUP), a beam 0.35 long and one
+    coarse cell thick (Turek's is 0.02 thick).  Returns ``path``."""
+    from femus_tpu_torch.mesh.generation import box
+
+    m0 = box((nx, ny), [(0.0, 2.2), (0.0, 0.41)], "quad")
+    cent = m0.coords[m0.conn[:, :4]].mean(axis=1)
+    hole = np.abs(cent - 0.2).max(axis=1) < 0.06
+    if solid:
+        row = cent[:, 1] == cent[hole, 1].min()
+        beam = row & ~hole & (cent[:, 0] > 0.25) & (cent[:, 0] < 0.6)
+        m0.elem_group = np.where(beam, 5, m0.elem_group).astype(np.int32)
+
+    def group(c):
+        if c[0] < 1e-9:
+            return 1
+        if c[0] > 2.2 - 1e-9:
+            return 2
+        if c[1] < 1e-9 or c[1] > 0.41 - 1e-9:
+            return 3
+        return 4
+
+    write_neu(_submesh(m0, ~hole, group), path)
+    return path
+
+
+def disk_neu(path: str, n: int) -> str:
+    """Write the unit disk as a Gambit file at ``path`` (ex08's mesh in
+    place of the absent disk.neu): box((n, n)) on (-1, 1)^2, every node
+    mapped by (x sqrt(1 - y^2/2), y sqrt(1 - x^2/2)), one boundary group.
+    Returns ``path``."""
+    from femus_tpu_torch.mesh.generation import box
+
+    m0 = box((n, n), [(-1.0, 1.0), (-1.0, 1.0)], "quad")
+    x, y = m0.coords[:, 0].copy(), m0.coords[:, 1].copy()
+    m0.coords = np.stack([x * np.sqrt(1 - y * y / 2),
+                          y * np.sqrt(1 - x * x / 2)], axis=1)
+    write_neu(_submesh(m0, np.ones(m0.n_elems, bool), lambda c: 1), path)
+    return path
+
+
 def read_groups_bc(var, x, grp, t):
     """Homogeneous Dirichlet on the boundary groups read from the file."""
     return grp in NEU_GROUPS, 0.0
@@ -3677,12 +3810,14 @@ def rotation_field(mesh):
 def phase_markers() -> dict:
     """markers-256: 2^20 markers in a disk on unit_box((256,256)): locate
     on the card (host nearest-centroid guess, float64 walk), then RK4
-    advection through the Q2 rigid rotation, one revolution in
-    MARKERS_STEPS steps (FEMuS ISM Line::AdvectionParallel); a 4,096-marker
-    subset located and advected on the host too; then ex05's magnetic
-    capture on MAGNETIC_COUNT markers."""
+    advection through the Q2 rigid rotation, MARKERS_TURN of a revolution
+    at MARKERS_STEPS steps a revolution (FEMuS ISM Line::AdvectionParallel),
+    held to the exact rotated start; a 4,096-marker subset located and
+    advected on the host too; then ex05's magnetic capture on
+    MAGNETIC_COUNT markers, MAGNETIC_STEPS steps."""
+    from femus_tpu_torch.examples.ex05_markers_magnetic import (
+        WIRE, capture_force)
     from femus_tpu_torch.mesh.generation import unit_box
-    from femus_tpu_torch.particles.forces import magnetic_force, wire_H
     from femus_tpu_torch.particles.markers import (MarkerCloud, advect,
                                                    locate, make_advect_fn)
 
@@ -3706,48 +3841,45 @@ def phase_markers() -> dict:
     x, e = step(x, e, vd, dt)                     # warm
     x = torch.as_tensor(cloud.x, **f64)
     e = torch.as_tensor(cloud.elem, device="cuda")
+    steps = round(MARKERS_TURN * MARKERS_STEPS)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for _ in range(MARKERS_STEPS):
+    for _ in range(steps):
         x, e = step(x, e, vd, dt)
     torch.cuda.synchronize()
     adv_s = time.perf_counter() - t0
-    ret = float((x - torch.as_tensor(pts, **f64)).abs().max())
+    # the exact end: the start rotated by 2 pi MARKERS_TURN about the centre
+    c, s_ = np.cos(2 * np.pi * MARKERS_TURN), np.sin(2 * np.pi * MARKERS_TURN)
+    end = 0.5 + (pts - 0.5) @ np.array([[c, s_], [-s_, c]])
+    ret = float((x - torch.as_tensor(end, **f64)).abs().max())
     located = int((e >= 0).sum())
-    # the subset, 1/10 revolution, card against host
+    # the subset, 1/20 revolution, card against host
     cs = [MarkerCloud(mesh, sub.x.copy(), sub.elem.copy()) for _ in "ch"]
     for c, dev in zip(cs, ("cuda", "cpu")):
-        advect(c, [u, v], ["biquadratic"] * 2, 2 * np.pi / 10,
-               MARKERS_STEPS // 10, order=4, dtype=torch.float64, device=dev)
+        advect(c, [u, v], ["biquadratic"] * 2, 2 * np.pi / 20,
+               MARKERS_STEPS // 20, order=4, dtype=torch.float64, device=dev)
     sub_err = float(np.abs(cs[0].x - cs[1].x).max())
     sub_owners = bool(np.array_equal(cs[0].elem, cs[1].elem))
     # ex05: a wire at (0.95, 0.5) along z, slow rotation, capped drift
-    wire = (0.95, 0.5)
-    fm0 = magnetic_force(wire_H([*wire, 0.0], [0.0, 0.0, 1.0], I=1.857e5),
-                         D=2e-4, mu_f=3.5e-3, dim=2)
-
-    def capped(xb):
-        f = fm0(xb)
-        n = torch.linalg.norm(f, dim=1, keepdim=True) + 1e-30
-        return f * torch.clamp(0.5 / n, max=1.0)
-
+    wire = WIRE
     rng = np.random.default_rng(1)
     mp = 0.5 + rng.uniform(-0.25, 0.25, size=(MAGNETIC_COUNT, 2))
     mc = MarkerCloud(mesh, mp.copy(), np.zeros(MAGNETIC_COUNT, np.int64))
     locate(mc, device="cuda")
     d0 = float(np.linalg.norm(mc.x - wire, axis=1).mean())
     t0 = time.perf_counter()
-    advect(mc, [0.2 * u, 0.2 * v], ["biquadratic"] * 2, 4.0, 200, order=4,
-           force_fn=capped, dtype=torch.float64, device="cuda")
+    advect(mc, [0.2 * u, 0.2 * v], ["biquadratic"] * 2,
+           0.02 * MAGNETIC_STEPS, MAGNETIC_STEPS, order=4,
+           force_fn=capture_force(), dtype=torch.float64, device="cuda")
     mag_s = time.perf_counter() - t0
     dist = np.linalg.norm(mc.x - wire, axis=1)
     rep = {"phase": "markers", "markers": MARKERS_COUNT,
            "elements": mesh.n_elems, "locate_s": locate_s,
            "located": int((cloud.elem >= 0).sum()),
            "owners_equal_host_subset": owners_equal,
-           "steps": MARKERS_STEPS, "advect_s": adv_s,
-           "s_per_step": adv_s / MARKERS_STEPS,
-           "marker_steps_per_s": MARKERS_COUNT * MARKERS_STEPS / adv_s,
+           "steps": steps, "turn": MARKERS_TURN, "advect_s": adv_s,
+           "s_per_step": adv_s / steps,
+           "marker_steps_per_s": MARKERS_COUNT * steps / adv_s,
            "located_after": located, "return_error": ret,
            "subset_card_host_max_diff": sub_err,
            "subset_owners_equal": sub_owners,
@@ -3871,28 +4003,11 @@ def phase_mpm() -> dict:
 
 
 def mpm_fsi_case(n: int, device):
-    """ex06 (tests/test_mpm_fsi.py's sinking block) on unit_box((n, n)):
-    Q2 velocity, P1 pressure, rho_s 4, rho_f 1, mu_f 0.5, neo-Hookean(50,
-    50), dt 0.01, ppe 24, ppc 2, no-slip walls, float64.  Returns (fsi,
-    state, u)."""
-    from femus_tpu_torch.mesh.generation import unit_box
-    from femus_tpu_torch.particles.mpm import (init_particles,
-                                               neo_hookean_stress)
-    from femus_tpu_torch.systems.mpm_fsi import MonolithicMPMFSI
-
-    mesh = unit_box((n, n))
-    fsi = MonolithicMPMFSI(mesh, neo_hookean_stress(50.0, 50.0), rho_s=4.0,
-                           rho_f=1.0, mu_f=0.5,
-                           bc_fn=lambda var, x, grp, t: (var != "P", 0.0),
-                           dt=0.01, ppe=24, newton_iters=MPM_FSI_NEWTON,
-                           device=device, dtype=torch.float64)
-    s = init_particles(mesh, lambda x: ((x[:, 0] > 0.35) & (x[:, 0] < 0.65)
-                                        & (x[:, 1] > 0.55)
-                                        & (x[:, 1] < 0.85)),
-                       ppc=2, density=4.0, device=device,
-                       dtype=torch.float64)
-    u = torch.zeros(fsi.asm.n_dofs, dtype=torch.float64, device=device)
-    return fsi, s, u
+    """ex06 (tests/test_mpm_fsi.py's sinking block) on unit_box((n, n))
+    through the example's own builder, MPM_FSI_NEWTON Newton iterations a
+    step.  Returns (fsi, state, u)."""
+    from femus_tpu_torch.examples.ex06_mpm_fsi_block import build
+    return build(n, device, newton_iters=MPM_FSI_NEWTON)
 
 
 def phase_mpm_fsi() -> dict:
@@ -3988,45 +4103,6 @@ def phase_projection() -> dict:
     return rep
 
 
-def uq_poisson(n: int, device, dtype=torch.float64):
-    """ex07's stochastic Poisson -div(e^xi grad u) = 1 on unit_box((n, n))
-    Q2, homogeneous Dirichlet: (solve(kappa) -> (u at (1/2, 1/2), CG
-    report), the assembled operator at kappa = 1 and its pattern).  Each
-    solve assembles with ``kappa`` as an aux scalar and runs Jacobi-CG to
-    1e-12 on the BELL frame."""
-    from femus_tpu_torch.algebra.bell import on_bell_frame
-    from femus_tpu_torch.algebra.krylov import jacobi_cg
-    from femus_tpu_torch.assembly.bc import generate_bdc
-    from femus_tpu_torch.assembly.engine import Assembler, Unknown
-    from femus_tpu_torch.mesh.generation import unit_box
-
-    mesh = unit_box((n, n))
-    fam = "biquadratic"
-    a = Assembler(mesh, [Unknown("u", fam)], quad_order="fifth",
-                  dtype=dtype, device=device)
-
-    def form(ops, u, aux):
-        one = ops.pointwise(lambda x: 1.0 + 0.0 * x[..., 0])
-        return {"u": aux["kappa"] * ops.tgrad(fam, ops.grad(fam, u["u"]))
-                - ops.t(fam, one)}
-
-    a.set_volume_form(form)
-    generate_bdc(a, lambda var, x, grp, t: (True, 0.0))
-    assemble = a.make_assemble_fn()
-    xy = mesh.coords[mesh.dofmap(fam).nodes]
-    centre = int(np.argmin(np.abs(xy - 0.5).sum(axis=1)))
-    u0 = torch.zeros(a.n_dofs, dtype=dtype, device=device)
-
-    def solve(kappa: float):
-        R, data = assemble(u0, {"kappa": kappa})
-        A = on_bell_frame(a.op_with(data), a.pattern, device)
-        u, info = jacobi_cg(A, -R, tol=1e-12, maxiter=20000)
-        return float(u[centre]), info
-
-    _, data1 = assemble(u0, {"kappa": 1.0})
-    return solve, data1, a.pattern
-
-
 def phase_uq() -> dict:
     """uq-pce-128: (a) ex07's collocation at 128x128 Q2: one Jacobi-CG solve
     on B1 per Hermite node (nq_1d = UQ_NQ), PCE coefficients of u at the
@@ -4042,8 +4118,11 @@ def phase_uq() -> dict:
     from femus_tpu_torch.uq import pce
     from femus_tpu_torch.uq.sparse_grid import avg_l2_error, fit_pdf
 
+    from femus_tpu_torch.examples.ex07_uq_pce import poisson_solver
+
     t0 = time.perf_counter()
-    solve, data1, pat = uq_poisson(UQ_N, "cuda")
+    solve, data1, pat = poisson_solver(UQ_N, "cuda", bell=True,
+                                       maxiter=20000)
     setup_s = time.perf_counter() - t0
     idx = pce.total_degree_set(1, UQ_DEG)
     infos = []
@@ -4148,7 +4227,8 @@ def run_slice9() -> dict:
 # markers-256's 2^20 markers for DIST_MARKERS_STEPS RK4 steps;
 # nccl_world1: the halo SpMV and the sharded step at world size 1 on NCCL
 # (no multi-card test: one rank, one card)
-DIST_RANKS, DIST_REPS = 4, 20
+# DIST_REPS: timing repetitions of each rank's exchange and products
+DIST_RANKS, DIST_REPS = 4, 10
 # seconds a launch of ranks may take (set-up included) before it fails
 DIST_TIMEOUT = 420
 DIST_HALO_CASES = (("cavity", 128, "f32"), ("cavity", 128, "f64"),
@@ -4156,9 +4236,9 @@ DIST_HALO_CASES = (("cavity", 128, "f32"), ("cavity", 128, "f64"),
 DIST_VARIANTS = (("bell", "auto", True), ("bell", "all_to_all", False),
                  ("ell", "auto", True))
 DIST_STEP_LEVELS, DIST_DRYRUN_COARSE = 4, 32
-# (RK4 steps of 2 pi / 400, a twentieth of a revolution; 40 steps before
-# slice 11, cut for the run's clock)
-DIST_MARKERS_STEPS, DIST_MARKERS_DT = 20, 2 * np.pi / 400
+# (RK4 steps of 2 pi / 400: a fortieth of a revolution, a cut in depth for
+# the run's clock)
+DIST_MARKERS_STEPS, DIST_MARKERS_DT = 10, 2 * np.pi / 400
 # patch3d: Q2 Poisson, -Lap u = 3 pi^2 sin sin sin, operator="patch" on
 # PatchedMultiLevelMesh(unit_box((6,6,6), "hex"), PATCH3D_LEVELS): finest
 # 48^3 elements, 97^3 = 912,673 dofs, float32
@@ -4184,7 +4264,10 @@ def _dist_step_configs() -> list:
                              restart=30, max_outer=20, local_format="bell",
                              timed=True), 1e-9),
             ("dryrun", dict(dryrun, timed=True), 1e-8),
-            ("dryrun-vanka", dict(dryrun, smoother="vanka"), 1e-9),
+            # one GMRES(20) cycle: the solve stagnates from the first cycle
+            # on (ROADMAP C)
+            ("dryrun-vanka", dict(dryrun, smoother="vanka", max_outer=1),
+             1e-9),
             ("fsi-vanka-aux", dict(case="fsi", n=FSI_COARSE,
                                    levels=FSI_LEVELS, outer="fgmres",
                                    rtol=1e-6, restart=15, max_outer=1,
@@ -4272,18 +4355,13 @@ def _global_b1(case: str, n: int, dt):
     return nr, x, y.cpu().numpy(), float(scale.abs().max())
 
 
-def phase_dist_halo() -> dict:
+def phase_dist_halo(res: list, wall: float) -> dict:
     """The halo SpMV over DIST_RANKS ranks on the card (B1 per rank, and
     the ELL gather), held against the global B1 product: float32 within
-    1e-5 max(|A||x|), float64 within 1e-12."""
-    from femus_tpu_torch.parallel import cases
-    from femus_tpu_torch.parallel.ranks import choose_backend, launch
+    1e-5 max(|A||x|), float64 within 1e-12.  ``res``: each rank's
+    halo_rank result from the shared launch of ``wall`` seconds."""
+    from femus_tpu_torch.parallel.ranks import choose_backend
 
-    t0 = time.perf_counter()
-    res = launch(cases.halo_rank, DIST_RANKS,
-                 (DIST_HALO_CASES, DIST_VARIANTS, 0, DIST_REPS),
-                 device="cuda", timeout=DIST_TIMEOUT)
-    wall = time.perf_counter() - t0
     out = {"phase": "dist_halo", **choose_backend(DIST_RANKS, "cuda"),
            "seconds": wall, "cases": {}}
     ok, launches = True, 0
@@ -4335,20 +4413,19 @@ def _b1_block_row(blocks: list, dt: str) -> dict:
     """The kernel-table row of B1 on the ranks' blocks, like with like: the
     rank whose whole local product (interior and boundary launches, the
     boundary rows added in) took longest, against one torch.sparse CSR
-    product of the same rank's whole block; its bound from the bytes both
-    plans must move (values and int32 columns of their slots, slice
-    pointers and row order, the extended x read once and y written
-    once).  The interior launch alone beside the CSR of the own-column
+    product of the same rank's whole block; its bound from the bytes the
+    product must move (each nonzero's value and int32 column, the
+    extended x read once and y written once) and its two flops a
+    nonzero.  The interior launch alone beside the CSR of the own-column
     entries rides along."""
     bl = max(blocks, key=lambda r: r["product_ms"])
     parts = [bl[p] for p in ("interior", "boundary") if p in bl]
     i = bl["interior"]
-    nbytes = (sum(b["slots"] * (b["value_bytes"] + 4)
-                  + (b["n_slices"] + 1) * 4 + b["n_slices"] * 32 * 4
-                  for b in parts)
+    nnz = sum(b["nnz"] for b in parts)
+    nbytes = (nnz * (i["value_bytes"] + 4)
               + (i["n_cols"] + bl["ghosts"] + i["n"]) * i["x_bytes"])
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = 2 * sum(b["slots"] for b in parts) / (
+    t_ops = 2 * nnz / (
         F64_FLOPS_PER_S if dt == "f64" else F32_FLOPS_PER_S) * 1e3
     return {"max_abs_err": max(max(b[p]["max_abs_err"] for p in
                                    ("interior", "boundary") if p in b)
@@ -4356,26 +4433,23 @@ def _b1_block_row(blocks: list, dt: str) -> dict:
             "ms": bl["product_ms"], "plain_ms": bl["product_plain_ms"],
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": bl["library_ms"], "rows": i["n"],
-            "nnz": sum(b["nnz"] for b in parts),
+            "library_ms": bl["library_ms"], "rows": i["n"], "nnz": nnz,
             "interior_ms": i["ms"],
             "interior_library_ms": bl["library_interior_ms"],
             "boundary_ms": bl["boundary"]["ms"] if "boundary" in bl
             else None}
 
 
-def phase_dist_step() -> dict:
-    """make_sharded_step on DIST_RANKS ranks against the same step at
-    world size 1 (NCCL, one card): Poisson MG-CG equal iterations and
-    solutions within 1e-9; the dryrun cavity step within 1e-8."""
+def phase_dist_step(r4: list, wall4: float) -> dict:
+    """make_sharded_step on DIST_RANKS ranks (``r4``: each rank's step_rank
+    result from the shared launch of ``wall4`` seconds) against the same
+    step at world size 1 (NCCL, one card): Poisson MG-CG equal iterations
+    and solutions within 1e-9; the dryrun cavity step within 1e-8."""
     from femus_tpu_torch.parallel import cases
     from femus_tpu_torch.parallel.ranks import launch
 
     named = _dist_step_configs()
     cfgs = [cfg for _, cfg, _ in named]
-    t0 = time.perf_counter()
-    r4 = launch(cases.step_rank, DIST_RANKS, (cfgs,), device="cuda",
-                timeout=DIST_TIMEOUT)
     t1 = time.perf_counter()
     # world size 1 (NCCL on the one card): the same steps, and the halo
     # SpMV of phase nccl_world1 in the same launch
@@ -4387,7 +4461,7 @@ def phase_dist_step() -> dict:
     r1 = [r1]
     t2 = time.perf_counter()
     rep = {"phase": "dist_step", "ranks": DIST_RANKS, "share_card": True,
-           "launch_s": {"4": t1 - t0, "1": t2 - t1}}
+           "launch_s": {"4": wall4, "1": t2 - t1}}
     ok = True
     launches = vanka_launches = 0
     for i, (name, cfg, tol) in enumerate(named):
@@ -4448,10 +4522,10 @@ def phase_dist_step() -> dict:
     return {**rep, "world1": r1, "halo1": (case, halo1)}
 
 
-def phase_dist_patch() -> dict:
-    """poisson-patch-1M's finest operator (float32) over DIST_RANKS slabs
-    of patches, B2 on each slab, held against the global B2 matvec at
-    B2's budget (1e-5 max(|A||x|))."""
+def dist_patch_prep(path: str) -> dict:
+    """poisson-patch-1M's finest operator (float32) on the card, its
+    product with a seeded x, and the DIST_RANKS slabs of patches written
+    to ``path`` for patch_rank."""
     from femus_tpu_torch.algebra import patchstencil as ps
     from femus_tpu_torch.assembly.bc import generate_bdc
     from femus_tpu_torch.assembly.engine import Assembler, Unknown
@@ -4460,7 +4534,6 @@ def phase_dist_patch() -> dict:
     from femus_tpu_torch.mesh.patches import refine_patched
     from femus_tpu_torch.parallel import cases
     from femus_tpu_torch.parallel import patch_spmd as pspmd
-    from femus_tpu_torch.parallel.ranks import launch
 
     t0 = time.perf_counter()
     mesh, plan = refine_patched(unit_box((PATCH_COARSE, PATCH_COARSE)),
@@ -4477,14 +4550,19 @@ def phase_dist_patch() -> dict:
     scale = float(ps.spmv_patch_cuda(
         ps.PatchStencilOp(op.wt.abs(), op.routing, op.meta), x.abs()).max())
     bounds = pspmd.slab_bounds(op.meta[1], DIST_RANKS)
-    setup_s = time.perf_counter() - t0
-    with tempfile.TemporaryDirectory() as tmp:
-        cases.save_parts(tmp, [pspmd.patch_slab(op, lo, hi)
-                               for lo, hi in bounds], x=x.cpu().numpy())
-        t0 = time.perf_counter()
-        res = launch(cases.patch_rank, DIST_RANKS, (tmp, DIST_REPS),
-                     device="cuda", timeout=DIST_TIMEOUT)
-        wall = time.perf_counter() - t0
+    cases.save_parts(path, [pspmd.patch_slab(op, lo, hi)
+                            for lo, hi in bounds], x=x.cpu().numpy())
+    return {"op": op, "y_glob": y_glob, "scale": scale, "bounds": bounds,
+            "setup_s": time.perf_counter() - t0}
+
+
+def phase_dist_patch(prep: dict, res: list, wall: float) -> dict:
+    """B2 on each of DIST_RANKS slabs (``res``: each rank's patch_rank
+    result from the shared launch of ``wall`` seconds), held against the
+    global B2 matvec of ``prep`` at B2's budget (1e-5 max(|A||x|))."""
+    op, y_glob, scale, bounds = (prep[k] for k in ("op", "y_glob", "scale",
+                                                   "bounds"))
+    setup_s = prep["setup_s"]
     E, P = op.meta[3], op.meta[1]
     y_int = np.concatenate([r["y_int"] for r in res], axis=2)
     y = np.concatenate([y_int.reshape(-1), res[0]["y_e"].reshape(-1),
@@ -4520,30 +4598,33 @@ def phase_dist_patch() -> dict:
         "launches": sum(r["launches"] for r in res)}
 
 
-def phase_dist_markers() -> dict:
-    """markers-256's cloud over DIST_RANKS ranks: DIST_MARKERS_STEPS RK4
-    steps (1/10 revolution) with all_to_all migration, against the same
-    steps of the whole cloud on one rank: elements equal, positions to
-    1e-12, nothing dropped."""
+def dist_markers_prep(path: str) -> dict:
+    """markers-256's cloud located on the card and written to ``path``
+    for markers_rank, and the run the ranks make of it."""
     from femus_tpu_torch.mesh.generation import unit_box
-    from femus_tpu_torch.parallel import cases
-    from femus_tpu_torch.parallel.ranks import launch
-    from femus_tpu_torch.particles.markers import (MarkerCloud, locate,
-                                                   make_advect_fn)
-    from femus_tpu_torch.particles.sharded import collect
+    from femus_tpu_torch.particles.markers import MarkerCloud, locate
 
     mesh = unit_box((MARKERS_N, MARKERS_N))
     pts = disk_markers(MARKERS_COUNT)
     cloud = MarkerCloud(mesh, pts.copy(), np.zeros(len(pts), np.int64))
     locate(cloud, device="cuda")
-    dt = DIST_MARKERS_DT
-    run = dict(steps=DIST_MARKERS_STEPS, dt=dt, order=4)
-    with tempfile.TemporaryDirectory() as tmp:
-        np.savez(os.path.join(tmp, "cloud.npz"), x=cloud.x, elem=cloud.elem)
-        t0 = time.perf_counter()
-        res = launch(cases.markers_rank, DIST_RANKS, (tmp, MARKERS_N, [run]),
-                     device="cuda", timeout=DIST_TIMEOUT)
-        wall = time.perf_counter() - t0
+    np.savez(os.path.join(path, "cloud.npz"), x=cloud.x, elem=cloud.elem)
+    return {"mesh": mesh, "cloud": cloud,
+            "run": dict(steps=DIST_MARKERS_STEPS, dt=DIST_MARKERS_DT,
+                        order=4)}
+
+
+def phase_dist_markers(prep: dict, res: list, wall: float) -> dict:
+    """markers-256's cloud over DIST_RANKS ranks (``res``: each rank's
+    markers_rank result from the shared launch of ``wall`` seconds):
+    DIST_MARKERS_STEPS RK4 steps with all_to_all migration, against the
+    same steps of the whole cloud on one rank: elements equal, positions
+    to 1e-12, nothing dropped."""
+    from femus_tpu_torch.parallel import cases
+    from femus_tpu_torch.particles.markers import make_advect_fn
+    from femus_tpu_torch.particles.sharded import collect
+
+    mesh, cloud, dt = prep["mesh"], prep["cloud"], DIST_MARKERS_DT
     res = [r[0] for r in res]
     step = make_advect_fn(mesh, ["biquadratic"] * 2, order=4,
                           dtype=torch.float64, device="cuda")
@@ -4566,7 +4647,7 @@ def phase_dist_markers() -> dict:
     elem_eq = same_n and bool(np.array_equal(te[o4], e1[o1]))
     pos_err = float(np.abs(tx[o4] - x1[o1]).max()) if same_n else None
     rep = {"phase": "dist_markers", "ranks": DIST_RANKS, "share_card": True,
-           "markers": int(len(pts)), "steps": DIST_MARKERS_STEPS,
+           "markers": cloud.n, "steps": DIST_MARKERS_STEPS,
            "capacity": res[0]["capacity"],
            "cap_migrate": res[0]["cap_migrate"],
            "migrations_per_step": res[0]["migrated"],
@@ -4730,12 +4811,34 @@ def run_slice10() -> dict:
     race on one .so)."""
     from femus_tpu_torch import native
     from femus_tpu_torch._cuda_build import KERNEL_SOURCES, build
+    from femus_tpu_torch.parallel import cases
+    from femus_tpu_torch.parallel.ranks import launch
+
     build(KERNEL_SOURCES)
     native.build()
-    out = {"partition": phase_dist_partition(), "halo": phase_dist_halo(),
-           "step": phase_dist_step()}
-    out["patch"] = phase_dist_patch()
-    out["markers"] = phase_dist_markers()
+    out = {"partition": phase_dist_partition()}
+    # one launch of DIST_RANKS processes runs the rank programs of
+    # dist_halo, dist_step, dist_patch and dist_markers in turn (a launch
+    # costs its processes' start-up; the phase lines report its seconds)
+    with tempfile.TemporaryDirectory() as tmp:
+        for sub in ("patch", "markers"):
+            os.makedirs(os.path.join(tmp, sub))
+        patch = dist_patch_prep(os.path.join(tmp, "patch"))
+        markers = dist_markers_prep(os.path.join(tmp, "markers"))
+        t0 = time.perf_counter()
+        res = launch(cases.calls_rank, DIST_RANKS, ([
+            ("halo_rank", (DIST_HALO_CASES, DIST_VARIANTS, 0, DIST_REPS)),
+            ("step_rank", ([cfg for _, cfg, _ in _dist_step_configs()],)),
+            ("patch_rank", (os.path.join(tmp, "patch"), DIST_REPS)),
+            ("markers_rank", (os.path.join(tmp, "markers"), MARKERS_N,
+                              [markers["run"]]))],),
+            device="cuda", timeout=DIST_TIMEOUT)
+        wall = time.perf_counter() - t0
+    out["halo"] = phase_dist_halo([r[0] for r in res], wall)
+    out["step"] = phase_dist_step([r[1] for r in res], wall)
+    out["patch"] = phase_dist_patch(patch, [r[2] for r in res], wall)
+    out["markers"] = phase_dist_markers(markers, [r[3] for r in res], wall)
+    del patch
     out["nccl"] = phase_nccl_world1(out["step"])
     out["patch3d"] = phase_patch3d()
     return out
@@ -4997,6 +5100,358 @@ def run_slice11(sys_, ml_sol) -> dict:
             "checkpoint": phase_checkpoint(sys_, ml_sol)}
 
 
+# ---------------------------------------------------------------------------
+# slice 12: the golden apps and the ten examples.  ns-channel is the JAX
+# main path's own builder (apps.ns_bench.make_ns_system at bench.py's
+# bench_newton_step settings: rtol 1e-4, interleaved dofs, operator "bell",
+# float32) on the Turek-style channel of channel_neu (the reference's
+# nsbenc.neu is absent); fsi-channel is apps.fsi_bench.make_fsi_system on
+# the same channel with a beam; the examples run at their JAX defaults
+# ---------------------------------------------------------------------------
+
+# ns-channel: coarse cells along and across the channel, make_ns_system's
+# default depth (finest 22,272 quads, 246,784 dofs) and the Newton steps a
+# level (float32 cannot meet the builder's nonlinear_tol of 1e-9)
+CHANNEL_NX, CHANNEL_NY, CHANNEL_LEVELS, CHANNEL_NEWTON = 44, 8, 4, 5
+# fsi-channel: make_fsi_system on the channel with the beam at 2 levels
+# (27,344 dofs), K-cycle, float64, with the reference's inexact Newton
+# (max_lin_iters=20: one FGMRES(20) cycle a step).  Two levels, not the
+# builder's 4, is a cut forced by the solver: at 3 levels (107,584 dofs)
+# the K-cycle does not converge on this channel.  ||R(u)|| stays at
+# 4.2438e-4 with the inexact Newton (a fall of 45.6x where the gate asks
+# 10^3) and at 2.43e-4 with every solve given 1,200 iterations
+# (max_lin_iters=0, none reaching 1e-8).  The JAX package stalls alike at
+# that configuration on the host (`python tests/test_torch_apps_fsi.py 44
+# 8 3`): its ||R(u)|| after each of the 15 finest steps lies within 1.4e-4
+# of the port's on the card, 4.243771e-4 at the end, a fall of 45.57x
+FSI_CHANNEL_LEVELS, FSI_CHANNEL_LIN_ITERS = 2, 20
+# ex08's disk: coarse cells per side of disk_neu's box
+EX08_DISK_N = 8
+# ex03 at its default EX_N = 16 does not reach its nonlinear_tol of 1e-9 in
+# either package: its Jacobi-GMRES(30) stops at its 600 iterations short of
+# 1e-10 in every Newton step, so each step is inexact.  On the host the two
+# packages print the same lin_res and max_eps for steps 0-2 and differ in
+# the fourth digit from step 3 (4.161e-4 against 4.160e-4); the gap then
+# grows to a factor 2.4 at step 14 (max_eps 7.6e-7 in the JAX example,
+# 1.8e-6 in the port) while both fall about 2.7x a step.  Two runs of the
+# port on the card (whose index_add_ atomics reorder sums) drift from each
+# other alike (max_eps 1.712e-2 and 1.638e-2 at step 4, 8.7e-7 and 2.0e-6
+# at step 14): rounding carried by the inexact steps.  The gate there
+# is EX03_DEFAULT_EPS, and the claim itself is held at EX03_SMALL_N, where
+# the linear solves converge and both print the same lines to 5.3e-12
+EX03_DEFAULT_EPS, EX03_SMALL_N = 1e-5, 6
+# ex10's ranks on the card: the JAX example's own default,
+# min(len(jax.devices()), 8), on a machine of one card (its 4 gloo ranks
+# sharing the card took 62-83 s of the run's clock, 2,700 host-staged GMRES
+# iterations; tests/test_torch_examples_sharded.py holds one rank and 4
+# ranks against JAX on the host, and dist_step and dist_markers run the
+# sharded step and the marker migration on 4 ranks on the card)
+EX10_RANKS = 1
+# examples whose returned numbers the host (float64) reproduces to
+# EXAMPLES_HOST_RTOL
+EXAMPLES_ON_HOST, EXAMPLES_HOST_RTOL = ("ex01", "ex02", "ex04", "ex07"), 1e-8
+
+
+def _newton_by_level(hist) -> dict:
+    """Newton steps, Krylov iterations, seconds and ||R(u)|| at each
+    step's input, by level."""
+    out = {}
+    for h in hist:
+        lv = out.setdefault(str(h["level"]), {
+            "newton_steps": 0, "lin_iters": [], "seconds": [],
+            "res_norm": [], "lin_converged": []})
+        lv["newton_steps"] += 1
+        lv["lin_iters"].append(h["lin_iters"])
+        lv["seconds"].append(h["seconds"])
+        lv["res_norm"].append(h["res_norm"])
+        lv["lin_converged"].append(h["converged"])
+    return out
+
+
+def phase_channel_setup(path: str) -> tuple:
+    """ns-channel through the JAX main path's builder, as bench.py's
+    bench_newton_step configures it."""
+    from femus_tpu_torch.apps import ns_bench
+
+    t0 = time.perf_counter()
+    prob, sys_ = ns_bench.make_ns_system(
+        levels=CHANNEL_LEVELS, rtol=1e-4, interleave=True, mesh_path=path,
+        device="cuda", dtype=torch.float32)
+    sys_.config.operator = "bell"
+    sys_.config.max_nonlinear = CHANNEL_NEWTON
+    setup_s = time.perf_counter() - t0
+    emit({"phase": "channel_setup", "seconds": setup_s,
+          "coarse_cells": [CHANNEL_NX, CHANNEL_NY],
+          "n_dofs": sys_.assemblers[-1].n_dofs,
+          "levels": [a.n_dofs for a in sys_.assemblers],
+          "elements": sys_.ml_mesh.finest().n_elems})
+    return prob, sys_, setup_s
+
+
+def phase_channel_main(prob, sys_, setup_s: float) -> dict:
+    """The F-cycle ratchet of ns-channel (up to CHANNEL_NEWTON Newton steps
+    a level), then make_temperature_system in the solved velocity (float64:
+    its rtol is 1e-10); the launch counts set to 0 just before the NS
+    solve and read just after."""
+    from femus_tpu_torch.apps import ns_bench
+    from femus_tpu_torch.systems.system import launch_counts
+
+    res0 = _res_norm(sys_)
+    reset_launches()
+    _flush_buffer.clear()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sys_.solve()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    final = _res_norm(sys_)
+    t0 = time.perf_counter()
+    sysT = ns_bench.make_temperature_system(prob, device="cuda",
+                                            dtype=torch.float64)
+    t_setup = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    info = sysT.solve()
+    torch.cuda.synchronize()
+    T = prob.ml_sol.sol[-1]["T"]
+    rep = {"phase": "channel_main", "setup_s": setup_s, "wall_s": wall,
+           "by_level": _newton_by_level(sys_.history),
+           "newton_steps": len(sys_.history),
+           "initial_res_norm": res0, "final_res_norm": final,
+           "res_norm_drop": res0 / max(final, 1e-300),
+           "linear_solves_converged": all(h["converged"]
+                                          for h in sys_.history),
+           "kernel_launches": launches, "peak_device_bytes": peak,
+           "fields_finite": all(np.all(np.isfinite(prob.ml_sol.sol[-1][n]))
+                                for n in ("U", "V", "P")),
+           "norms": {n: float(np.linalg.norm(prob.ml_sol.sol[-1][n]))
+                     for n in ("U", "V", "P")},
+           "temperature": {"setup_s": t_setup,
+                           "seconds": time.perf_counter() - t0,
+                           "iters": info["iters"],
+                           "residual": info["residual"],
+                           "target": info["target"],
+                           "converged": info["converged"],
+                           "norm": float(np.linalg.norm(T)),
+                           "min": float(T.min()), "max": float(T.max())},
+           "routing": sys_.solver_info()["routing"]}
+    emit(rep)
+    if not rep["linear_solves_converged"]:
+        raise AssertionError("channel_main: a linear solve missed its rtol")
+    if not rep["res_norm_drop"] >= 1e3:
+        raise AssertionError(f"channel_main: ||R(u)|| fell only "
+                             f"{rep['res_norm_drop']:.3g}x")
+    if launches["bell_spmv"] <= 0:
+        raise AssertionError("channel_main: the solve launched no B1")
+    if not (rep["fields_finite"] and info["converged"]
+            and np.isfinite(rep["temperature"]["norm"])):
+        raise AssertionError(f"channel_main: temperature: {rep}")
+    return rep
+
+
+def _solid_det_f(sys_) -> tuple:
+    """(min, max) of det(I + grad d) at the quadrature points of the solid
+    elements of the finest level."""
+    from femus_tpu_torch.apps.fsi_bench import SOLID_GROUP
+    from femus_tpu_torch.assembly.engine import ElemOpsBatched
+
+    a = sys_.assemblers[-1]
+    t = a.device_tables_cached()
+    ops = ElemOpsBatched(t["tabs"], t["qweights"],
+                         t["coords_e"].permute(1, 2, 0), 2)
+    conn = a.dofmaps["DX"].conn.T
+    sol = sys_.ml_sol.sol[-1]
+    G = torch.stack([ops.grad("biquadratic", torch.as_tensor(
+        sol[c][conn], dtype=sys_.dtype, device="cuda"))
+        for c in ("DX", "DY")], dim=1)
+    F = G + torch.eye(2, dtype=G.dtype, device="cuda")[None, :, :, None]
+    J = (F[:, 0, 0] * F[:, 1, 1] - F[:, 0, 1] * F[:, 1, 0])
+    J = J[:, torch.as_tensor(a.mesh.elem_group == SOLID_GROUP,
+                             device="cuda")]
+    return float(J.min()), float(J.max())
+
+
+def phase_fsi_channel(path: str) -> dict:
+    """fsi-channel: make_fsi_system (K-cycle, max_lin_iters
+    FSI_CHANNEL_LIN_ITERS, operator "bell", float64) over
+    FSI_CHANNEL_LEVELS levels; the launch counts set to 0 just before the
+    solve and read just after."""
+    from femus_tpu_torch.apps import fsi_bench
+    from femus_tpu_torch.systems.system import launch_counts
+
+    t0 = time.perf_counter()
+    _, sys_ = fsi_bench.make_fsi_system(
+        levels=FSI_CHANNEL_LEVELS, mg_cycle="K",
+        max_lin_iters=FSI_CHANNEL_LIN_ITERS,
+        cfg_overrides={"operator": "bell"}, mesh_path=path, device="cuda",
+        dtype=torch.float64)
+    setup_s = time.perf_counter() - t0
+    res0 = _res_norm(sys_)
+    reset_launches()
+    t0 = time.perf_counter()
+    sys_.solve()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    final = _res_norm(sys_)
+    mesh = sys_.ml_mesh.finest()
+    xy = mesh.coords[mesh.dofmap("biquadratic").nodes]
+    solid = fsi_bench.solid_mark(mesh)[mesh.dofmap("biquadratic").nodes] > 0
+    tip = solid & np.isclose(xy[:, 0], xy[solid, 0].max())
+    sol = sys_.ml_sol.sol[-1]
+    det_min, det_max = _solid_det_f(sys_)
+    rep = {"phase": "fsi_channel", "setup_s": setup_s, "solve_s": wall,
+           "n_dofs": [a.n_dofs for a in sys_.assemblers],
+           "by_level": _newton_by_level(sys_.history),
+           "newton_steps": len(sys_.history),
+           "max_lin_iters": FSI_CHANNEL_LIN_ITERS,
+           "linear_solves_converged": all(h["converged"]
+                                          for h in sys_.history),
+           "initial_res_norm": res0, "final_res_norm": final,
+           "res_norm_drop": res0 / max(final, 1e-300),
+           "beam_tip_dy": float(sol["DY"][tip].mean()),
+           "beam_tip_dx": float(sol["DX"][tip].mean()),
+           "det_f_solid": [det_min, det_max],
+           "norms": {n: float(np.linalg.norm(sol[n]))
+                     for n in ("DX", "DY", "U", "V", "P")},
+           "kernel_launches": launches,
+           "fields_finite": all(np.all(np.isfinite(sol[n]))
+                                for n in ("DX", "DY", "U", "V", "P")),
+           "routing": sys_.solver_info()["routing"]}
+    emit(rep)
+    if not rep["res_norm_drop"] >= 1e3:
+        raise AssertionError(f"fsi_channel: ||R(u)|| fell only "
+                             f"{rep['res_norm_drop']:.3g}x")
+    if not (det_min > 0 and rep["fields_finite"]):
+        raise AssertionError(f"fsi_channel: det F or fields: {rep}")
+    if launches["bell_spmv"] <= 0:
+        raise AssertionError("fsi_channel: the solve launched no B1")
+    return rep
+
+
+def _example_gates(name: str, r: dict) -> bool:
+    """The claim each example prints (ex08-ex10 assert their own)."""
+    if name == "ex01":
+        deg = {"linear": 2, "serendipity": 3, "biquadratic": 3,
+               "disc_constant": 1, "disc_linear": 2}
+        return all(abs(r[f]["order"] - p) < 0.3 for f, p in deg.items())
+    if name == "ex02":
+        return all(abs(r[f]["l2_orders"][-1] - p) < 0.2 for f, p in
+                   (("linear", 2), ("serendipity", 3), ("biquadratic", 3)))
+    if name == "ex03":
+        return (r["max_eps"] < EX03_DEFAULT_EPS and r["max_abs_u"] == 1.0
+                and r["small"]["max_eps"] < r["small"]["nonlinear_tol"]
+                and r["small"]["max_abs_u"] == 1.0)
+    if name == "ex04":
+        return (abs(r["cn"]["order"] - 2) < 0.2
+                and r["rk"]["l2"][-1] < r["cn"]["l2"][-1])
+    if name == "ex05":
+        return (r["in_domain"] == r["markers"] == 50 and r["captured"] >= 1
+                and r["mean_dist_after"] < r["mean_dist_before"])
+    if name == "ex06":
+        return (r["com_y"][-1] < r["com_y"][0]
+                and 0 < r["det_min"] <= r["det_max"] < np.inf)
+    if name == "ex07":
+        return (np.isfinite([r["mean"], r["var"]]).all() and r["var"] > 0
+                and np.isfinite(r["pdf"]).all() and min(r["pdf"]) >= 0)
+    return True
+
+
+def _numbers(r, path: str = "") -> dict:
+    """Every number in an example's returned dict, by its key path."""
+    if isinstance(r, dict):
+        out = {}
+        for k in sorted(r):
+            out.update(_numbers(r[k], f"{path}/{k}"))
+        return out
+    if isinstance(r, (bool, str)):
+        return {}
+    return {path: np.atleast_1d(np.asarray(r, dtype=np.float64)).ravel()}
+
+
+def _host_rel_diff(card: dict, host: dict) -> float:
+    """The largest difference between the card's and the host's returned
+    numbers, each relative to the largest of its kind (key path)."""
+    a, b = _numbers(card), _numbers(host)
+    if a.keys() != b.keys() or any(a[k].shape != b[k].shape for k in a):
+        return float("inf")
+    return max(float(np.abs(a[k] - b[k]).max()
+                     / max(np.abs(b[k]).max(), 1e-300)) for k in a)
+
+
+def phase_examples(disk: str, out_dir: str) -> dict:
+    """The ten examples at their JAX defaults on the card (float64; ex10 on
+    EX10_RANKS ranks; ex03 also at EX03_SMALL_N), their
+    printed lines captured; ex01,
+    ex02, ex04 and ex07 also on the host, every returned number within
+    EXAMPLES_HOST_RTOL (relative to the largest of its kind) of the
+    card's."""
+    import importlib
+    import io
+
+    names = ["ex01_function_approximation", "ex02_poisson_convergence",
+             "ex03_navier_stokes_cavity", "ex04_transient_heat_rk",
+             "ex05_markers_magnetic", "ex06_mpm_fsi_block", "ex07_uq_pce",
+             "ex08_tumor_diffusion", "ex09_amr_mg",
+             "ex10_sharded_transient_particles"]
+    for k in ("EX_N", "EX_STEPS", "EX_LEVELS", "EX_CYCLES", "EX_D2"):
+        os.environ.pop(k, None)
+    os.environ["EX_OUT"] = os.path.join(out_dir, "cavity.vtu")
+    rep = {"phase": "examples", "disk_coarse": EX08_DISK_N}
+    ok = True
+    for full in names:
+        short = full[:4]
+        mod = importlib.import_module(f"femus_tpu_torch.examples.{full}")
+        kw = ({"mesh_path": disk} if short == "ex08" else
+              {"n_ranks": EX10_RANKS} if short == "ex10" else {})
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            got = mod.main(device="cuda", **kw)
+            if short == "ex03":
+                os.environ["EX_N"] = str(EX03_SMALL_N)
+                got["small"] = mod.main(device="cuda")
+                del os.environ["EX_N"]
+        torch.cuda.synchronize()
+        row = {"seconds": time.perf_counter() - t0,
+               "printed": buf.getvalue().splitlines(),
+               "gates": _example_gates(short, got)}
+        if short in EXAMPLES_ON_HOST:
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                host = mod.main(device="cpu", **kw)
+            row["host_seconds"] = time.perf_counter() - t0
+            row["host_max_rel_diff"] = _host_rel_diff(got, host)
+            row["gates"] &= row["host_max_rel_diff"] <= EXAMPLES_HOST_RTOL
+        rep[short] = row
+        ok &= row["gates"]
+    emit(rep)
+    if not ok:
+        raise AssertionError("examples: a gate failed: " + json.dumps(
+            {k: v for k, v in rep.items()
+             if isinstance(v, dict) and not v["gates"]}))
+    return rep
+
+
+def run_slice12() -> dict:
+    """The slice-12 phases in order (the rank processes of ex10 start after
+    the kernels are built)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        ch = channel_neu(os.path.join(tmp, "channel.neu"), CHANNEL_NX,
+                         CHANNEL_NY)
+        prob, sys_, setup_s = phase_channel_setup(ch)
+        k = phase_kernel(sys_, "channel_kernel")
+        main = phase_channel_main(prob, sys_, setup_s)
+        del prob, sys_
+        disk = disk_neu(os.path.join(tmp, "disk.neu"), EX08_DISK_N)
+        ex = phase_examples(disk, tmp)
+        beam = channel_neu(os.path.join(tmp, "beam.neu"), CHANNEL_NX,
+                           CHANNEL_NY, solid=True)
+        fsi = phase_fsi_channel(beam)
+    return {"kernel": k, "main": main, "fsi": fsi, "examples": ex}
+
+
 def card_line() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -5109,6 +5564,9 @@ def main() -> int:
         del fsys, fsol
         ftr = phase_fsi_transient()
         phase_fsi_reference()
+        # slice 12: the golden apps (the JAX main path's builder on a
+        # Turek-style channel, B1) and the ten examples
+        s12 = run_slice12()
     except Exception:
         traceback.print_exc()
         return 1
@@ -5184,6 +5642,14 @@ def main() -> int:
         "diagnostics_launches": s11["diagnostics"]["b1_launches"],
         "trace_launches": s11["trace"]["b1_launches"],
         "checkpoint_launches": s11["checkpoint"]["b1_launches"],
+        # and on the slice-12 paths: the channel Jacobian of the JAX main
+        # path's builder (ns-channel, float32) and the FSI channel
+        # (fsi-channel, float64)
+        "channel_launches": s12["main"]["kernel_launches"]["bell_spmv"],
+        "fsi_channel_launches": s12["fsi"]["kernel_launches"]["bell_spmv"],
+        "channel_values": "f32",
+        **{"channel_" + key: s12["kernel"][key]
+           for key in KERNEL_KEYS + ("fill",)},
         "dist_values": "f32",
         **{"dist_" + key: value for key, value in _b1_block_row(
             s10["halo"]["cases"]["cavity-128-f32"]["blocks_per_rank"],

@@ -296,6 +296,21 @@ class System:
             n = self.ml_sol.n_dofs(u.name, level)
             self.ml_sol.sol[level][u.name][:] = x[off:off + n]
 
+    def snapshot(self) -> List[Dict[str, np.ndarray]]:
+        """A copy of every level's fields, for ``reset``."""
+        return [{n: a.copy() for n, a in lv.items()}
+                for lv in self.ml_sol.sol]
+
+    def reset(self, state: List[Dict[str, np.ndarray]]) -> None:
+        """Every level's fields back to ``state`` (from ``snapshot``), and
+        the built steps dropped: the next solve builds them from the
+        config as it is then (another cycle shape, smoother or compute
+        type)."""
+        for lv, saved in zip(self.ml_sol.sol, state):
+            for n, a in saved.items():
+                lv[n][:] = a
+        self._step_fns.clear()
+
     def _aux_arrays(self, level: int) -> Dict[str, torch.Tensor]:
         """The aux fields of ``level`` as read now (old values after the
         transient drive's copy_to_old), on the device."""

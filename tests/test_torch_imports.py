@@ -378,3 +378,46 @@ def test_importing_the_writers_needs_no_h5py():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]", out.stdout
+
+
+EXAMPLES = ("ex01_function_approximation", "ex02_poisson_convergence",
+            "ex03_navier_stokes_cavity", "ex04_transient_heat_rk",
+            "ex05_markers_magnetic", "ex06_mpm_fsi_block", "ex07_uq_pce",
+            "ex08_tumor_diffusion", "ex09_amr_mg",
+            "ex10_sharded_transient_particles")
+
+
+def test_slice12_modules_are_covered():
+    """The golden apps and the ten examples are among the modules the
+    import checks walk (no jax, no femus_tpu, no work at import)."""
+    mods = set(_modules())
+    for m in ("apps", "apps.ns_bench", "apps.fsi_bench", "examples") + tuple(
+            "examples." + e for e in EXAMPLES):
+        assert f"femus_tpu_torch.{m}" in mods, m
+
+
+@pytest.mark.parametrize("name", EXAMPLES)
+def test_examples_raise_without_cuda(no_cuda, name):
+    """An example's ``main()`` runs on the card unless asked for the host:
+    without CUDA it raises before any work."""
+    import importlib
+    mod = importlib.import_module(f"femus_tpu_torch.examples.{name}")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        mod.main()
+
+
+def test_apps_raise_without_cuda(no_cuda, tmp_path):
+    """The apps' systems and assemblers run on the card unless asked for
+    the host (a written channel mesh stands in for the absent ones)."""
+    import chip_smoke
+    from femus_tpu_torch.apps import fsi_bench, ns_bench
+    path = chip_smoke.channel_neu(str(tmp_path / "c.neu"), 22, 4, solid=True)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ns_bench.make_ns_system(levels=1, mesh_path=path)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        fsi_bench.make_fsi_system(levels=1, mesh_path=path)
+    mesh = ns_bench.load_mesh(0, path)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ns_bench.make_temperature_assembler(mesh)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        fsi_bench.make_assembler(mesh)

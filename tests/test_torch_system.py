@@ -131,6 +131,39 @@ def test_state_carried_from_jax(slice_runs):
                                atol=1e-8 * np.abs(u).max())
 
 
+def test_reset_restores_the_state_and_rebuilds_the_steps():
+    """System.reset: the fields back to a snapshot, and a solve after it,
+    with another smoother set, equals that of a System built with that
+    smoother (two Newton steps each)."""
+    def solved(smoother, first=None):
+        ts, tsol = first or _cavity("femus_tpu_torch")
+        if first is None:
+            ts.config.max_nonlinear = 2
+            ts.init(device="cpu")
+        ts.config.smoother = smoother
+        ts.solve()
+        return ts, tsol
+
+    ts, tsol = _cavity("femus_tpu_torch")
+    ts.config.max_nonlinear = 2
+    ts.init(device="cpu")
+    start = ts.snapshot()
+    solved("jacobi", (ts, tsol))
+    jacobi = [h["lin_iters"] for h in ts.history]
+    ts.reset(start)
+    for lv, saved in zip(tsol.sol, start):
+        for name, a in saved.items():
+            np.testing.assert_array_equal(lv[name], a)
+    # the Vanka blocks are built with the step: a kept step has none
+    solved("vanka", (ts, tsol))
+    ref, rsol = solved("vanka")
+    iters = [h["lin_iters"] for h in ts.history]
+    assert iters == [h["lin_iters"] for h in ref.history] != jacobi
+    for name in ("u", "v", "p"):
+        np.testing.assert_allclose(tsol.sol[-1][name], rsol.sol[-1][name],
+                                   rtol=0, atol=1e-12)
+
+
 def test_routing_puts_fine_level_on_bell(slice_runs):
     routing = slice_runs["ts"].solver_info()["routing"]
     note = next(r for r in routing if r["n_rows"] == 2946)
