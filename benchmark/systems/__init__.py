@@ -1,0 +1,1 @@
+"""Files of the benchmark found by name; see benchmark/README.md."""
