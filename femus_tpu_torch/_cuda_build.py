@@ -16,6 +16,8 @@ import subprocess
 from pathlib import Path
 from typing import Dict, Iterable, List
 
+from .utils.telemetry import count, span
+
 PACKAGE_DIR = Path(__file__).resolve().parent
 BUILD_DIR = PACKAGE_DIR.parent / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -61,6 +63,7 @@ def build(sources: Iterable[str]) -> Dict[str, str]:
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        count("rebuild.kernel_build")
         cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(PACKAGE_DIR / source)]
         procs.append((source, out, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
@@ -82,6 +85,8 @@ def load_library(source: str) -> ctypes.CDLL:
     """The loaded library of ``source``, built first if needed."""
     lib = _loaded.get(source)
     if lib is None:
-        build([source])
-        lib = _loaded[source] = ctypes.CDLL(str(library_path(source)))
+        with span("setup.kernel_load"):
+            count("rebuild.kernel_load")
+            build([source])
+            lib = _loaded[source] = ctypes.CDLL(str(library_path(source)))
     return lib

@@ -22,6 +22,8 @@ import numpy as np
 import scipy.linalg
 import torch
 
+from ..utils.telemetry import count, span
+
 
 def _dot(a: torch.Tensor, b: torch.Tensor, reduce: Optional[Callable]):
     return torch.dot(a, b) if reduce is None else reduce(torch.dot(a, b))
@@ -47,22 +49,29 @@ def cg(A: Callable, b: torch.Tensor, x0=None, M: Optional[Callable] = None,
     x = torch.zeros_like(b) if x0 is None else x0
     M = M or (lambda r: r)
     r = b - A(x)
-    z = M(r)
+    with span("krylov.precond"):
+        z = M(r)
     p = z
     rz = _dot(r, z, reduce)
     target = max(tol * float(_norm(b, reduce)), atol)
+    count("host_wait.cg_target")
     k = 0
-    while k < maxiter and float(_norm(r, reduce)) > target:
+    while k < maxiter:
+        count("host_wait.cg_residual")
+        if not float(_norm(r, reduce)) > target:
+            break
         Ap = A(p)
         alpha = rz / _dot(p, Ap, reduce)
         x = x + alpha * p
         r = r - alpha * Ap
-        z = M(r)
+        with span("krylov.precond"):
+            z = M(r)
         rz_new = _dot(r, z, reduce)
         p = z + (rz_new / rz) * p
         rz = rz_new
         k += 1
     res = float(_norm(r, reduce))
+    count("host_wait.cg_residual")
     return x, SolveInfo(k, res, bool(res <= target), target)
 
 
@@ -113,9 +122,12 @@ def _gmres_core(opM: Callable, opA: Callable, b: torch.Tensor, x0, M,
     def resid(x):
         return opM(b - opA(x))
 
-    target = max(tol * float(_norm(opM(b), reduce)), atol)
-    r = resid(x)
+    with span("krylov.precond"):
+        target = max(tol * float(_norm(opM(b), reduce)), atol)
+        r = resid(x)
     res = float(_norm(r, reduce))
+    count("host_wait.gmres_target")
+    count("host_wait.gmres_residual")
     total = 0
     V = torch.zeros((m + 1, n), dtype=b.dtype, device=b.device)
     Z = torch.zeros((m, n), dtype=b.dtype, device=b.device) if flexible \
@@ -124,8 +136,10 @@ def _gmres_core(opM: Callable, opA: Callable, b: torch.Tensor, x0, M,
         if res <= target:
             break
         if k > 0:
-            r = resid(x)
+            with span("krylov.precond"):
+                r = resid(x)
         beta = float(_norm(r, reduce))
+        count("host_wait.gmres_residual")
         V[0] = r / (beta if beta != 0.0 else 1.0)
         H = np.zeros((m + 1, m))
         cs, sn = np.zeros(m), np.zeros(m)
@@ -133,47 +147,55 @@ def _gmres_core(opM: Callable, opA: Callable, b: torch.Tensor, x0, M,
         g[0] = beta
         j = 0
         while j < m and abs(g[j]) > target:
-            if flexible:
-                Z[j] = M(V[j])
-                w = opA(Z[j])
-            else:
-                w = opM(opA(V[j]))
-            # CGS2 against the j+1 basis vectors so far
-            Vj = V[:j + 1]
-            h1 = Vj @ w
-            if reduce is not None:
-                h1 = reduce(h1)
-            w = w - Vj.T @ h1
-            h2 = Vj @ w
-            if reduce is not None:
-                h2 = reduce(h2)
-            w = w - Vj.T @ h2
-            wnorm = _norm(w, reduce)
-            V[j + 1] = w / torch.where(wnorm == 0, 1.0, wnorm)
-            # the iteration's one host read: the new Hessenberg column
-            col = np.zeros(m + 1)
-            col[:j + 2] = torch.cat([h1 + h2, wnorm[None]]).cpu().numpy()
-            for i in range(j):
-                hi = cs[i] * col[i] + sn[i] * col[i + 1]
-                col[i + 1] = -sn[i] * col[i] + cs[i] * col[i + 1]
-                col[i] = hi
-            c, s = _givens(col[j], col[j + 1])
-            col[j] = c * col[j] + s * col[j + 1]
-            col[j + 1] = 0.0
-            g[j + 1] = -s * g[j]
-            g[j] = c * g[j]
-            H[:, j] = col
-            cs[j], sn[j] = c, s
+            with span("krylov.precond"):
+                if flexible:
+                    Z[j] = M(V[j])
+                    w = opA(Z[j])
+                else:
+                    w = opM(opA(V[j]))
+            with span("krylov.orth"):
+                # CGS2 against the j+1 basis vectors so far
+                Vj = V[:j + 1]
+                h1 = Vj @ w
+                if reduce is not None:
+                    h1 = reduce(h1)
+                w = w - Vj.T @ h1
+                h2 = Vj @ w
+                if reduce is not None:
+                    h2 = reduce(h2)
+                w = w - Vj.T @ h2
+                wnorm = _norm(w, reduce)
+                V[j + 1] = w / torch.where(wnorm == 0, 1.0, wnorm)
+                # the iteration's one host read: the new Hessenberg column
+                col = np.zeros(m + 1)
+                col[:j + 2] = torch.cat([h1 + h2, wnorm[None]]).cpu().numpy()
+                count("host_wait.gmres_hessenberg")
+                for i in range(j):
+                    hi = cs[i] * col[i] + sn[i] * col[i + 1]
+                    col[i + 1] = -sn[i] * col[i] + cs[i] * col[i + 1]
+                    col[i] = hi
+                c, s = _givens(col[j], col[j + 1])
+                col[j] = c * col[j] + s * col[j + 1]
+                col[j + 1] = 0.0
+                g[j + 1] = -s * g[j]
+                g[j] = c * g[j]
+                H[:, j] = col
+                cs[j], sn[j] = c, s
             j += 1
         if j:
-            y = scipy.linalg.solve_triangular(H[:j, :j], g[:j], lower=False)
-            basis = Z if flexible else V
-            x = x + basis[:j].T @ torch.as_tensor(y, dtype=b.dtype,
-                                                  device=b.device)
+            with span("krylov.orth"):
+                y = scipy.linalg.solve_triangular(H[:j, :j], g[:j],
+                                                  lower=False)
+                basis = Z if flexible else V
+                x = x + basis[:j].T @ torch.as_tensor(y, dtype=b.dtype,
+                                                      device=b.device)
+                count("host_wait.gmres_update_upload")
         total += j
         res = abs(g[j])
-    return x, SolveInfo(total, float(_norm(resid(x), reduce)),
-                        bool(res <= target), target)
+    with span("krylov.precond"):
+        final = float(_norm(resid(x), reduce))
+    count("host_wait.gmres_residual")
+    return x, SolveInfo(total, final, bool(res <= target), target)
 
 
 def gmres(A: Callable, b: torch.Tensor, x0=None, M: Optional[Callable] = None,

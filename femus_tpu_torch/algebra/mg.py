@@ -16,6 +16,7 @@ from typing import Callable, List, Optional, Sequence
 import torch
 
 from .. import resolve_device
+from ..utils.telemetry import count, span, timed
 from .krylov import fgmres
 from .smoothers import chebyshev_smoother, jacobi_smoother, power_lambda_max
 from .sparse import SparseOp
@@ -57,12 +58,14 @@ class MGHierarchy:
     compute_dtype: Optional[torch.dtype] = None   # mixed-precision cycle dtype
     k_inner: int = 2                      # K-cycle inner FGMRES iterations
 
+    @timed("mg_setup.coarse_lu")
     def setup_coarse(self):
         """Factor the dense coarsest operator once, in float32 when it is
         stored in bfloat16 (there is no bfloat16 LU)."""
         Ad = self.levels[0].A.to_dense()
         self.coarse_lu = torch.linalg.lu_factor(
             Ad.float() if Ad.dtype == torch.bfloat16 else Ad)
+        count("host_wait.coarse_lu_check")
 
     def coarse_solve(self, b):
         if self.coarse_lu is not None:
@@ -268,54 +271,60 @@ def build_hierarchy(fine_op: SparseOp,
     n_levels = len(transfers) + 1
     ops = [None] * n_levels
     ops[-1] = fine_op
-    for l in range(n_levels - 2, -1, -1):
-        sched = transfers[l][2]
-        op_c = SparseOp(sched.apply(ops[l + 1].data.to(device)),
-                        sched.coarse_cols, sched.coarse_pattern.n_cols)
-        if dir_masks is not None and dir_masks[l] is not None:
-            op_c = apply_dirichlet_identity(
-                op_c, sched.coarse_valid,
-                torch.as_tensor(dir_masks[l], device=device))
-        ops[l] = op_c
-    pr = [(t[0], t[1]) for t in transfers]
-    if compute_dtype is not None:
-        ops, pr = ([_cast(A, compute_dtype) for A in ops],
-                   [(_cast(P, compute_dtype), _cast(R, compute_dtype))
-                    for P, R in pr])
-    # a dense-LU coarsest level is never smoothed or multiplied in the
-    # V-cycle: it gets neither a BELL-frame operator nor a smoother
-    coarse_lu = coarse_dense_max is None or ops[0].n_rows <= coarse_dense_max
-    if bell_plans is not None:
-        from .bell import BellBackedOp, bell_backed
-        ops = [bell_backed(bp, A)
-               if (bp is not None and not isinstance(A, BellBackedOp)
-                   and not (l == 0 and coarse_lu)) else A
-               for l, (bp, A) in enumerate(zip(bell_plans, ops))]
-    levels = []
-    for l in range(n_levels):
-        A = ops[l]
-        if l == 0 and coarse_lu:
-            sm = None
-        elif (smoother in ("vanka", "vanka_gmres")
-                and vanka_blocks is not None
-                and vanka_blocks[l] is not None):
-            from .vanka import vanka_smoother
-            sm = vanka_smoother(A, vanka_blocks[l], omega=vanka_omega,
-                                multiplicative=vanka_multiplicative)
-            if smoother == "vanka_gmres":
-                sm = krylov_smoother(
-                    A, (lambda r, _s=sm: _s(r, torch.zeros_like(r))),
-                    m=krylov_m)
-        else:
-            d = A.diagonal()
-            sm = _point_smoother(A.matvec, d.to(vector_dtype(d.dtype)),
-                                 smoother, jacobi_omega, cheb_degree)
-        P, R = pr[l - 1] if l > 0 else (None, None)
-        levels.append(MGLevel(A, P, R, sm))
-    h = MGHierarchy(levels, n_pre, n_post, compute_dtype=compute_dtype)
-    if coarse_lu:
-        h.setup_coarse()          # else: coarse solve = repeated smoothing
-    return h
+    with span("step.coarsen"):
+        for l in range(n_levels - 2, -1, -1):
+            sched = transfers[l][2]
+            op_c = SparseOp(sched.apply(ops[l + 1].data.to(device)),
+                            sched.coarse_cols, sched.coarse_pattern.n_cols)
+            if dir_masks is not None and dir_masks[l] is not None:
+                op_c = apply_dirichlet_identity(
+                    op_c, sched.coarse_valid,
+                    torch.as_tensor(dir_masks[l], device=device))
+            ops[l] = op_c
+    with span("step.mg_setup"):
+        pr = [(t[0], t[1]) for t in transfers]
+        if compute_dtype is not None:
+            ops, pr = ([_cast(A, compute_dtype) for A in ops],
+                       [(_cast(P, compute_dtype), _cast(R, compute_dtype))
+                        for P, R in pr])
+        # a dense-LU coarsest level is never smoothed or multiplied in the
+        # V-cycle: it gets neither a BELL-frame operator nor a smoother
+        coarse_lu = (coarse_dense_max is None
+                     or ops[0].n_rows <= coarse_dense_max)
+        if bell_plans is not None:
+            from .bell import BellBackedOp, bell_backed
+            ops = [bell_backed(bp, A)
+                   if (bp is not None and not isinstance(A, BellBackedOp)
+                       and not (l == 0 and coarse_lu)) else A
+                   for l, (bp, A) in enumerate(zip(bell_plans, ops))]
+        levels = []
+        with span("mg_setup.smoothers"):
+            for l in range(n_levels):
+                A = ops[l]
+                if l == 0 and coarse_lu:
+                    sm = None
+                elif (smoother in ("vanka", "vanka_gmres")
+                        and vanka_blocks is not None
+                        and vanka_blocks[l] is not None):
+                    from .vanka import vanka_smoother
+                    sm = vanka_smoother(A, vanka_blocks[l],
+                                        omega=vanka_omega,
+                                        multiplicative=vanka_multiplicative)
+                    if smoother == "vanka_gmres":
+                        sm = krylov_smoother(
+                            A, lambda r, _s=sm: _s(r, torch.zeros_like(r)),
+                            m=krylov_m)
+                else:
+                    d = A.diagonal()
+                    sm = _point_smoother(A.matvec,
+                                         d.to(vector_dtype(d.dtype)),
+                                         smoother, jacobi_omega, cheb_degree)
+                P, R = pr[l - 1] if l > 0 else (None, None)
+                levels.append(MGLevel(A, P, R, sm))
+        h = MGHierarchy(levels, n_pre, n_post, compute_dtype=compute_dtype)
+        if coarse_lu:
+            h.setup_coarse()      # else: coarse solve = repeated smoothing
+        return h
 
 
 def _cast_level(op, dtype: torch.dtype):
@@ -328,6 +337,7 @@ def _cast_level(op, dtype: torch.dtype):
     return _cast(op, dtype)
 
 
+@timed("step.mg_setup")
 def build_hierarchy_from_ops(ops: Sequence, pr_pairs: Sequence,
                              smoother: str = "chebyshev",
                              n_pre: int = 2, n_post: int = 2,
@@ -370,17 +380,18 @@ def build_hierarchy_from_ops(ops: Sequence, pr_pairs: Sequence,
         pr = [(_cast(P, compute_dtype), _cast(R, compute_dtype))
               for P, R in pr]
     levels = [MGLevel(ops[0])]
-    for l in range(1, len(ops)):
-        A = ops[l]
-        if (smoother == "vanka" and vanka_blocks is not None
-                and vanka_blocks[l] is not None):
-            from .vanka import vanka_smoother
-            sm = vanka_smoother(A, vanka_blocks[l], omega=vanka_omega)
-        else:
-            d = A.diagonal()
-            sm = _point_smoother(A.matvec, d.to(vector_dtype(d.dtype)),
-                                 smoother, jacobi_omega, cheb_degree)
-        levels.append(MGLevel(A, pr[l - 1][0], pr[l - 1][1], sm))
+    with span("mg_setup.smoothers"):
+        for l in range(1, len(ops)):
+            A = ops[l]
+            if (smoother == "vanka" and vanka_blocks is not None
+                    and vanka_blocks[l] is not None):
+                from .vanka import vanka_smoother
+                sm = vanka_smoother(A, vanka_blocks[l], omega=vanka_omega)
+            else:
+                d = A.diagonal()
+                sm = _point_smoother(A.matvec, d.to(vector_dtype(d.dtype)),
+                                     smoother, jacobi_omega, cheb_degree)
+            levels.append(MGLevel(A, pr[l - 1][0], pr[l - 1][1], sm))
     h = MGHierarchy(levels, n_pre, n_post, compute_dtype=compute_dtype)
     h.setup_coarse()
     return h
@@ -422,8 +433,9 @@ def build_hierarchy_matfree(fine_mv: Callable, fine_diag: torch.Tensor,
         fine_mv = lambda x: mv0(x.to(amb)).to(x.dtype)      # noqa: E731
         fine_diag = fine_diag.to(vdt)
         P, R = _cast(P, compute_dtype), _cast(R, compute_dtype)
-    sm = _point_smoother(fine_mv, fine_diag, smoother, jacobi_omega,
-                         cheb_degree)
+    with span("step.mg_setup"), span("mg_setup.smoothers"):
+        sm = _point_smoother(fine_mv, fine_diag, smoother, jacobi_omega,
+                             cheb_degree)
     levels = sub.levels + [MGLevel(MatFreeOp(fine_mv, fine_diag.shape[0]),
                                    P, R, sm)]
     return MGHierarchy(levels, n_pre, n_post, coarse_lu=sub.coarse_lu,

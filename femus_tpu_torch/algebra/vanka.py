@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..utils.telemetry import count, lu_factor_waits
 from .sparse import EllPattern
 
 
@@ -154,6 +155,7 @@ def _invert_blocks(data: torch.Tensor, dofs: torch.Tensor,
     Ab = torch.where(rows_valid[:, :, None] & rows_valid[:, None, :], Ab, 0.0)
     Ab = Ab + (~rows_valid).to(data.dtype)[:, :, None] * eye
     lu, piv = torch.linalg.lu_factor(Ab)
+    count("host_wait.vanka_lu", lu_factor_waits(*Ab.shape[:2]))
     Ainv = torch.linalg.lu_solve(lu, piv, eye.expand(Ab.shape))
     return Ainv, rows_valid.to(data.dtype)
 

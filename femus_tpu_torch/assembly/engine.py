@@ -49,6 +49,7 @@ from ..fe.geom import GEOMS
 from ..fe.quadrature import gauss
 from ..fe.basis import get_basis
 from ..fe.tabulate import face_trace_nodes, tabulate
+from ..utils.telemetry import count, span
 
 GEO_FAMILY = "biquadratic"   # isoparametric geometry representation
 
@@ -757,7 +758,9 @@ class Assembler:
     def device_tables_cached(self) -> dict:
         """device_tables() with caching; invalidated by set_dirichlet."""
         if self._tables_cache is None:
-            self._tables_cache = self.device_tables()
+            with span("setup.step_build"):
+                count("rebuild.tables")
+                self._tables_cache = self.device_tables()
         return self._tables_cache
 
     def device_tables(self) -> dict:

@@ -7,6 +7,7 @@ from __future__ import annotations
 
 from typing import List
 
+from ..utils.telemetry import timed
 from .mesh import Mesh
 from .patches import refine_patched
 from .patches3d import refine_patched_hex
@@ -14,6 +15,7 @@ from .refine import refine
 
 
 class MultiLevelMesh:
+    @timed("setup.mesh")
     def __init__(self, coarse: Mesh, n_levels: int = 1):
         self.levels: List[Mesh] = [coarse]
         self.refine_to(n_levels)
@@ -50,6 +52,7 @@ class PatchedMultiLevelMesh(MultiLevelMesh):
     (``parent_elem``) stays valid across levels.  A hex coarse mesh gets
     the 3-D plans (``mesh.patches3d.refine_patched_hex``)."""
 
+    @timed("setup.mesh")
     def __init__(self, coarse: Mesh, n_levels: int = 1):
         coarse.patch_plan = None
         self.levels = [coarse]

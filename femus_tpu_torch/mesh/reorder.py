@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from ..utils.telemetry import timed
 from .mesh import BoundaryFaces, Mesh
 
 
@@ -84,6 +85,7 @@ def rcm_reorder(mesh: Mesh) -> Mesh:
     return reorder_mesh(mesh, node_rcm_permutation(mesh))
 
 
+@timed("setup.mesh")
 def rcm_reorder_hierarchy(ml_mesh) -> None:
     """RCM-renumber every level of a :class:`MultiLevelMesh` IN PLACE,
     keeping refinement lineage consistent: level l+1's ``parent_elem``

@@ -31,6 +31,7 @@ from ..algebra.stencil import spmv_stencil_cuda
 from ..algebra.transfer import (block_diag_prolongation, build_ptap_schedule,
                                 mask_prolongation, op_pair_from_scipy)
 from ..assembly.engine import Assembler, Unknown
+from ..utils.telemetry import count, records_solve, span, timed
 from .solution import DIRICHLET, MultiLevelSolution
 
 # every CUDA kernel wrapper of the port, by kernel name; each counts its
@@ -143,7 +144,8 @@ class System:
         self.aux_scalars: Dict[str, float] = {}
         self.config = SolverConfig()
         self._initialized = False
-        self.timing = {"solve": 0.0}
+        # profile_step's split (assembly_s, coarsen_s, solve_step_s)
+        self.timing: Dict[str, float] = {}
         self._routing_notes: List[dict] = []
 
     def add_unknown(self, *names: str) -> None:
@@ -175,6 +177,7 @@ class System:
         return self.problem.ml_mesh
 
     # ---- setup --------------------------------------------------------
+    @timed("setup.init")
     def init(self, device="cuda", dtype: Optional[torch.dtype] = None) -> None:
         """Build per-level assemblers, Dirichlet masks and transfers on
         ``device`` (solve precision ``dtype``: float64 on the host, float32
@@ -319,6 +322,7 @@ class System:
             src = self.ml_sol.sol_old if old else self.ml_sol.sol
             out[alias] = torch.as_tensor(src[level][svar], dtype=self.dtype,
                                          device=self.device)
+            count("host_wait.aux_upload")
         return out
 
     # ---- routing telemetry -----------------------------------------------
@@ -355,8 +359,10 @@ class System:
             return None
         # EllPattern has identity equality: the pattern object is the key
         if pattern not in self._bell_plans:
-            dev, note = bell_device_plan(pattern, self.config.bell_order,
-                                         self.device)
+            with span("setup.step_build"):
+                count("rebuild.bell_plan")
+                dev, note = bell_device_plan(pattern, self.config.bell_order,
+                                             self.device)
             self._route_note(n_rows=pattern.n_rows, **note)
             self._bell_plans[pattern] = dev
         return self._bell_plans[pattern]
@@ -429,12 +435,14 @@ class System:
             if level == n_levels - 1 or self._rediscretized:
                 tr = self.transfers[:level]
             else:
-                tr = [None] * level
-                pat_above = self.assemblers[level].pattern
-                for l in range(level - 1, -1, -1):
-                    tr[l] = self._build_transfer(l, *self._physical_pair(l),
-                                                 pat_above)
-                    pat_above = tr[l][2].coarse_pattern
+                with span("setup.step_build"):
+                    count("rebuild.transfers")
+                    tr = [None] * level
+                    pat_above = self.assemblers[level].pattern
+                    for l in range(level - 1, -1, -1):
+                        tr[l] = self._build_transfer(
+                            l, *self._physical_pair(l), pat_above)
+                        pat_above = tr[l][2].coarse_pattern
             self._transfer_cache[level] = tr
         return self._transfer_cache[level]
 
@@ -451,11 +459,18 @@ class System:
         bordered solves of scalar global unknowns).  ``device``: None or
         the device the system was initialised on."""
         self._check_device(device)
-        n_levels = len(self.ml_mesh.levels)
         if level < 0:
-            level += n_levels
-        if level in self._step_fns:
-            return self._step_fns[level]
+            level += len(self.ml_mesh.levels)
+        step = self._step_fns.get(level)
+        if step is None:
+            with span("setup.step_build"):
+                count("rebuild.step")
+                step = self._step_fns[level] = self._build_step(level)
+        return step
+
+    def _build_step(self, level: int) -> Callable:
+        """The solve step of ``level`` (see :meth:`step_fn`)."""
+        n_levels = len(self.ml_mesh.levels)
         a = self.assemblers[level]
         assemble = a.make_assemble_fn(pass_tables=True)
         cfg = self.config
@@ -508,9 +523,7 @@ class System:
             if base:
                 raise NotImplementedError("operator='matrix_free' with "
                                           "max_mg_levels")
-            step = self._matrix_free_step(level, a, transfers)
-            self._step_fns[level] = step
-            return step
+            return self._matrix_free_step(level, a, transfers)
 
         vblocks = None
         if cfg.smoother in ("vanka", "vanka_gmres"):
@@ -545,48 +558,59 @@ class System:
 
         def step(u, tables=None, aux_scalars=None, aux_fields=None,
                  extra_rhs=None):
-            tables = a.device_tables_cached() if tables is None else tables
-            if aux_fields is None:
-                aux_fields = self._aux_arrays(level)
-            u = u.to(device=self.device, dtype=self.dtype)
-            if extra_rhs is not None:
-                extra_rhs = torch.as_tensor(extra_rhs, dtype=self.dtype,
-                                            device=self.device)
-            R, data = assemble(u, tables, aux_scalars, aux_fields)
-            res_norm = float(torch.linalg.norm(R))
-            A = a.op_with(data, tables.get("ell_cols"))
-            if bell_fine is not None:
-                A = bell_backed(bell_fine, A)
+            with span("step.assemble"):
+                tables = a.device_tables_cached() if tables is None else tables
+                if aux_fields is None:
+                    aux_fields = self._aux_arrays(level)
+                u = u.to(device=self.device, dtype=self.dtype)
+                if extra_rhs is not None:
+                    if not torch.is_tensor(extra_rhs):
+                        count("host_wait.extra_rhs_upload")
+                    extra_rhs = torch.as_tensor(extra_rhs, dtype=self.dtype,
+                                                device=self.device)
+                R, data = assemble(u, tables, aux_scalars, aux_fields)
+                res_norm = float(torch.linalg.norm(R))
+                count("host_wait.res_norm")
+                A = a.op_with(data, tables.get("ell_cols"))
+                if bell_fine is not None:
+                    A = bell_backed(bell_fine, A)
             if coarse_direct:
-                Ad = A.to_dense()
-                delta = torch.linalg.solve(Ad, -R)
-                res = float(torch.linalg.norm(R + A @ delta))
-                D = (None if extra_rhs is None
-                     else torch.linalg.solve(Ad, extra_rhs))
+                with span("step.krylov"):         # the direct solve
+                    Ad = A.to_dense()
+                    delta = torch.linalg.solve(Ad, -R)
+                    res = float(torch.linalg.norm(R + A @ delta))
+                    D = (None if extra_rhs is None
+                         else torch.linalg.solve(Ad, extra_rhs))
+                    count("host_wait.direct_solve_check",
+                          1 if extra_rhs is None else 2)
+                    count("host_wait.direct_residual")
                 return StepOut(u + delta, delta, res, 1, res_norm, True,
                                max(cfg.rtol * res_norm, cfg.atol), D)
             if rediscretize:
                 # each coarse level assembled on its own mesh at the
                 # averaged-restricted state
-                ops = [None] * level + [A]
-                u_l = u
-                for l in range(level - 1, -1, -1):
-                    Rsol, winv = self._rsol[l]
-                    u_l = (Rsol @ u_l) * winv
-                    a_c = self.assemblers[l]
-                    t_c = a_c.device_tables_cached()
-                    _, data_l = coarse_assemble[l](u_l, t_c, aux_scalars,
-                                                   self._aux_arrays(l))
-                    ops[l] = a_c.op_with(data_l, t_c.get("ell_cols"))
-                    if bell_coarse is not None and bell_coarse[l] is not None:
-                        ops[l] = bell_backed(bell_coarse[l], ops[l])
-                h = build_hierarchy_from_ops(
-                    ops, [(t[0], t[1]) for t in transfers],
-                    smoother=cfg.smoother, n_pre=cfg.n_pre,
-                    n_post=cfg.n_post, cheb_degree=cfg.cheb_degree,
-                    vanka_blocks=vblocks, vanka_omega=cfg.vanka_omega,
-                    krylov_m=cfg.krylov_m,
-                    vanka_multiplicative=cfg.vanka_multiplicative)
+                with span("step.coarsen"):
+                    ops = [None] * level + [A]
+                    u_l = u
+                    for l in range(level - 1, -1, -1):
+                        Rsol, winv = self._rsol[l]
+                        u_l = (Rsol @ u_l) * winv
+                        a_c = self.assemblers[l]
+                        t_c = a_c.device_tables_cached()
+                        _, data_l = coarse_assemble[l](u_l, t_c, aux_scalars,
+                                                       self._aux_arrays(l))
+                        ops[l] = a_c.op_with(data_l, t_c.get("ell_cols"))
+                with span("step.mg_setup"):
+                    if bell_coarse is not None:
+                        ops = [op if bp is None else bell_backed(bp, op)
+                               for bp, op in zip(bell_coarse, ops)]
+                    h = build_hierarchy_from_ops(
+                        ops, [(t[0], t[1]) for t in transfers],
+                        smoother=cfg.smoother, n_pre=cfg.n_pre,
+                        n_post=cfg.n_post, cheb_degree=cfg.cheb_degree,
+                        vanka_blocks=vblocks, vanka_omega=cfg.vanka_omega,
+                        krylov_m=cfg.krylov_m,
+                        vanka_multiplicative=cfg.vanka_multiplicative)
                 M = h.as_preconditioner(cfg.mg_cycle)
             elif transfers:
                 h = build_hierarchy(A, transfers, smoother=cfg.smoother,
@@ -602,11 +626,13 @@ class System:
                 M = h.as_preconditioner(cfg.mg_cycle)
             elif cfg.smoother in ("vanka", "vanka_gmres"):
                 from ..algebra.vanka import vanka_smoother
-                sm = vanka_smoother(A, vblocks[0], omega=cfg.vanka_omega)
+                with span("step.mg_setup"):
+                    sm = vanka_smoother(A, vblocks[0], omega=cfg.vanka_omega)
                 M = lambda r: sm(torch.zeros_like(r), r)
             else:
-                d = A.diagonal()
-                dsafe = torch.where(d.abs() < 1e-30, 1.0, d)
+                with span("step.mg_setup"):
+                    d = A.diagonal()
+                    dsafe = torch.where(d.abs() < 1e-30, 1.0, d)
                 M = lambda r: r / dsafe
             delta, info = self._outer_solve(A.matvec, -R, M)
             D = None
@@ -617,9 +643,9 @@ class System:
             return StepOut(u + delta, delta, info.residual, info.iters,
                            res_norm, info.converged, info.target, D)
 
-        self._step_fns[level] = step
         return step
 
+    @timed("step.krylov")
     def _outer_solve(self, A: Callable, b: torch.Tensor, M: Callable):
         """The configured outer Krylov solve of ``A x = b``.  An
         inner-Krylov smoother ("vanka_gmres") or a K-cycle makes ``M`` a
@@ -669,21 +695,25 @@ class System:
                     for l in range(level)]
 
         def step(u, tables=None, aux_scalars=None, aux_fields=None):
-            tables = a.device_tables_cached() if tables is None else tables
-            if aux_fields is None:
-                aux_fields = self._aux_arrays(level)
-            u = u.to(device=self.device, dtype=self.dtype)
-            R, jv = linearize(u, tables, aux_scalars, aux_fields)
-            res_norm = float(torch.linalg.norm(R))
+            with span("step.assemble"):
+                tables = a.device_tables_cached() if tables is None else tables
+                if aux_fields is None:
+                    aux_fields = self._aux_arrays(level)
+                u = u.to(device=self.device, dtype=self.dtype)
+                R, jv = linearize(u, tables, aux_scalars, aux_fields)
+                res_norm = float(torch.linalg.norm(R))
+                count("host_wait.res_norm")
+                diag = diag_fn(u, tables, aux_scalars, aux_fields)
 
             def Amv(v):
                 return torch.where(m_f, v, jv(torch.where(m_f, 0.0, v)))
 
-            diag = diag_fn(u, tables, aux_scalars, aux_fields)
             if transfers:
-                t_c = a_c.device_tables_cached()
-                _, data_c = assemble_c((Rsol @ u) * winv, t_c, aux_scalars,
-                                       self._aux_arrays(level - 1))
+                with span("step.coarsen"):
+                    t_c = a_c.device_tables_cached()
+                    _, data_c = assemble_c((Rsol @ u) * winv, t_c,
+                                           aux_scalars,
+                                           self._aux_arrays(level - 1))
                 h = build_hierarchy_matfree(
                     Amv, diag, a_c.op_with(data_c, t_c.get("ell_cols")),
                     list(sub_tr) + [fine_pr], smoother=cfg.smoother,
@@ -693,7 +723,8 @@ class System:
                     device=self.device)
                 M = h.as_preconditioner(cfg.mg_cycle)
             else:
-                dsafe = torch.where(diag.abs() < 1e-30, 1.0, diag)
+                with span("step.mg_setup"):
+                    dsafe = torch.where(diag.abs() < 1e-30, 1.0, diag)
                 M = lambda r: r / dsafe
             delta, info = self._outer_solve(Amv, -R, M)
             return StepOut(u + delta, delta, info.residual, info.iters,
@@ -774,17 +805,20 @@ class System:
                 else [n_levels - 1])
 
     def _run_step(self, l: int) -> StepOut:
-        u = torch.as_tensor(self.gather(l), dtype=self.dtype,
-                            device=self.device)
+        with span("drive"):
+            u = torch.as_tensor(self.gather(l), dtype=self.dtype,
+                                device=self.device)
+            count("host_wait.gather_upload")
         k0 = launch_counts()
-        t0 = _time.perf_counter()
-        out = self.step_fn(l)(u, None, self.aux_scalars, self._aux_arrays(l))
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        self.last_step_seconds = _time.perf_counter() - t0
+        with span("step") as timer:
+            out = self.step_fn(l)(u, None, self.aux_scalars,
+                                  self._aux_arrays(l))
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+                count("host_wait.step_sync")
+        self.last_step_seconds = timer.seconds
         self.last_step_launches = {k: n - k0[k]
                                    for k, n in launch_counts().items()}
-        self.timing["solve"] += self.last_step_seconds
         return out
 
     def _refine_to(self, l: int) -> None:
@@ -807,6 +841,7 @@ class LinearImplicitSystem(System):
     """One assemble + MG-preconditioned solve on the finest level (V) or on
     every level, coarse to fine (F)."""
 
+    @records_solve
     def solve(self, device=None) -> Dict:
         assert self._initialized, "call init() first"
         self._check_device(device)
@@ -814,14 +849,17 @@ class LinearImplicitSystem(System):
         levels = self._levels_to_solve()
         for l in levels:
             out = self._run_step(l)
-            self.scatter(out.u.cpu().numpy(), l)
+            with span("drive"):
+                self.scatter(out.u.cpu().numpy(), l)
+                count("host_wait.solution_copy")
             info = {"level": l, "residual": out.lin_res,
                     "target": out.lin_target,
                     "iters": out.lin_iters, "converged": out.converged,
                     "seconds": self.last_step_seconds,
                     "kernel_launches": self.last_step_launches}
             if l < levels[-1]:
-                self._refine_to(l)
+                with span("drive"):
+                    self._refine_to(l)
         if self.config.verbose:
             print(f"[{self.name}] solver: {self.solver_info()}")
         return info
@@ -831,6 +869,7 @@ class NonLinearImplicitSystem(LinearImplicitSystem):
     """Newton-MG: outer Newton loop per level with per-variable relative
     correction norms as the stopping test."""
 
+    @records_solve
     def solve(self, device=None) -> Dict:
         assert self._initialized, "call init() first"
         self._check_device(device)
@@ -842,20 +881,22 @@ class NonLinearImplicitSystem(LinearImplicitSystem):
             it = 0
             while it < cfg.max_nonlinear:
                 out = self._run_step(l)
-                u_new = out.u.cpu().numpy()
-                norms = self.eps_norms(out.delta.cpu().numpy(), u_new, l)
-                worst = max(norms.values())
-                if np.isnan(worst) or np.isinf(worst):
-                    # NaN recovery: restart the level once from its
-                    # Dirichlet values
-                    if not restarted:
-                        restarted = True
-                        self._apply_bc_values(l)
-                        it = 0
-                        continue
-                    raise FloatingPointError(
-                        f"NaN in system '{self.name}' level {l} after restart")
-                self.scatter(u_new, l)
+                with span("drive"):
+                    u_new = out.u.cpu().numpy()
+                    norms = self.eps_norms(out.delta.cpu().numpy(), u_new, l)
+                    count("host_wait.solution_copy", 2)
+                    worst = max(norms.values())
+                    if np.isnan(worst) or np.isinf(worst):
+                        # NaN recovery: restart the level once from its
+                        # Dirichlet values
+                        if not restarted:
+                            restarted = True
+                            self._apply_bc_values(l)
+                            it = 0
+                            continue
+                        raise FloatingPointError(f"NaN in system '{self.name}'"
+                                                 f" level {l} after restart")
+                    self.scatter(u_new, l)
                 history.append({"level": l, "newton_it": it, "eps": norms,
                                 "lin_res": out.lin_res,
                                 "lin_target": out.lin_target,
@@ -868,7 +909,8 @@ class NonLinearImplicitSystem(LinearImplicitSystem):
                 if worst < cfg.nonlinear_tol:
                     break
             if l < levels[-1]:
-                self._refine_to(l)
+                with span("drive"):
+                    self._refine_to(l)
         self.history = history
         if cfg.verbose:
             print(f"[{self.name}] solver: {self.solver_info()}")
