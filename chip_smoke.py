@@ -419,7 +419,17 @@ read those files:
                     with its iterations, residual and ||T||; gates: every
                     linear solve meets rtol, the finest ||R(u)|| falls
                     10^3x from the initial guess, the temperature meets
-                    1e-10, B1 launched;
+                    1e-10, B1 launched, V1 launched twice a colour step
+                    and no colour step on the plain chain;
+    channel_vanka_kernel — V1 (the Vanka colour kernel) against the plain
+                    chain (vanka.sweep_plain) on the three smoothed levels
+                    of the solve's last hierarchy (operators and blocks
+                    captured from the main path): each colour step from
+                    the chain's own state within 1e-5 of its rounding
+                    budget, the whole sweep within 1e-5 of the steps'
+                    budget, the sweep repeating bit for bit, x unwritten;
+                    a colour step's cold time, device time (profiler),
+                    HBM bound, and the plain chain's device time;
 54. fsi_channel   — apps.fsi_bench.make_fsi_system on the channel with the
                     beam (group 5), FSI_CHANNEL_LEVELS levels (27,344
                     dofs; see FSI_CHANNEL_LIN_ITERS for why not 3),
@@ -5188,6 +5198,180 @@ def phase_channel_setup(path: str) -> tuple:
     return prob, sys_, setup_s
 
 
+@contextlib.contextmanager
+def recorded_vanka(seen: list):
+    """Appends (A, blocks, omega) of every multiplicative Vanka smoother
+    built inside the block to ``seen``."""
+    from femus_tpu_torch.algebra import vanka
+
+    real = vanka.vanka_smoother
+
+    def recording(A, blocks, omega=1.0, iters=1, multiplicative=True):
+        if multiplicative:
+            seen.append((A, blocks, omega))
+        return real(A, blocks, omega, iters, multiplicative)
+
+    vanka.vanka_smoother = recording
+    try:
+        yield seen
+    finally:
+        vanka.vanka_smoother = real
+
+
+def vanka_step_budget(A, colour, b, x, omega: float) -> torch.Tensor:
+    """The rounding budget of one colour step: |x| + omega |Ainv| (|b| +
+    |A| |x|) at the colour's dofs, |x| elsewhere."""
+    from femus_tpu_torch.algebra.sparse import SparseOp
+
+    d, ainv, rv = colour
+    n = x.shape[0]
+    rb = b.abs() + SparseOp(A.data.abs(), A.cols, A.n_cols) @ x.abs()
+    rb = torch.cat([rb, rb.new_zeros(1)]).to(ainv.dtype)[d] * rv
+    u = torch.bmm(ainv.abs(), rb[:, :, None])[:, :, 0] * rv
+    upd = x.new_zeros(n + 1).index_add_(0, d.reshape(-1), u.reshape(-1))[:n]
+    return x.abs() + abs(omega) * upd
+
+
+def vanka_colour_work(A, colour) -> tuple:
+    """(HBM bytes, flops) of one colour step (kernel V1): the nonzero ELL
+    slots of the colour's rows (value at its stored type, int64 column),
+    the inverses, the dof ids, b and the residual scratch written and read,
+    x gathered once at each distinct column and updated at the colour's
+    dofs; two flops a nonzero slot and an inverse entry."""
+    d, ainv, _ = colour
+    xsz = ainv.element_size()
+    rows = d.reshape(-1)
+    real = rows[rows < A.n_rows]
+    nz = A.data[real] != 0
+    nnz = int(nz.sum())
+    gathered = int(torch.unique(A.cols[real][nz]).numel())
+    nbytes = (nnz * (A.data.element_size() + 8) + ainv.numel() * xsz
+              + rows.numel() * (8 + 3 * xsz) + gathered * xsz
+              + 2 * real.numel() * xsz)
+    return nbytes, 2 * (nnz + ainv.numel())
+
+
+def device_ms(fn, reps: int, names=None) -> float:
+    """Device milliseconds of ``reps`` calls of ``fn`` (torch.profiler),
+    of the kernels whose names hold one of ``names`` (every device
+    operation for None)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    return 1e-6 * sum(e.duration_ns()
+                      for e in prof.profiler.kineto_results.events()
+                      if e.device_type() == cuda
+                      and (names is None or any(k in e.name()
+                                                for k in names)))
+
+
+def host_ms(fn, reps: int) -> float:
+    """Host milliseconds a call of ``fn``, synchronised at the end."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / reps
+
+
+VANKA_RTOL = 1e-5        # of the rounding budget, float32 vectors
+VANKA_REPS = 50
+
+
+def vanka_level_row(A, blocks, omega: float) -> dict:
+    """V1 against the plain chain on one smoothed level: the level's
+    inverses and plan as ``vanka_smoother`` builds them, seeded b and x in
+    the inverses' dtype."""
+    from femus_tpu_torch.algebra import vanka
+
+    per_color = [(d, *vanka._invert_blocks(A.data, d, s, blocks.n))
+                 for d, s in zip(blocks.color_dofs, blocks.color_slots)]
+    data, cols = A.data.contiguous(), A.cols.contiguous()
+    plan = vanka.colour_plan(data, cols, per_color, A.n_rows)
+    k, vec = len(per_color), per_color[0][1].dtype
+    gen = torch.Generator(device="cpu").manual_seed(2)
+    b, x = (torch.randn(A.n_rows, generator=gen, dtype=vec).cuda()
+            for _ in range(2))
+    x0 = x.clone()
+    # each colour step from the plain chain's own state
+    worst, steps, xc = 0.0, [], x
+    for colour in per_color:
+        one = vanka.colour_plan(data, cols, [colour], A.n_rows)
+        got = vanka.vanka_sweep_cuda(one, b, xc, omega)
+        ref = vanka.sweep_plain(A, [colour], b, xc, omega)
+        budget = float(vanka_step_budget(A, colour, b, xc, omega).max())
+        steps.append(budget)
+        worst = max(worst, float((got - ref).abs().max()) / budget)
+        xc = ref
+    y_k = vanka.vanka_sweep_cuda(plan, b, x, omega)
+    y_p = vanka.sweep_plain(A, per_color, b, x, omega)
+    err = float((y_k - y_p).abs().max())
+    whole = err / (max(steps) * k)
+    repeats = bool(torch.equal(vanka.vanka_sweep_cuda(plan, b, x, omega),
+                               y_k))
+    work = [vanka_colour_work(A, c) for c in per_color]
+    nbytes = sum(w[0] for w in work) / k
+    flops = sum(w[1] for w in work) / k
+    peak = F64_FLOPS_PER_S if vec == torch.float64 else F32_FLOPS_PER_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
+
+    def kern():
+        vanka.vanka_sweep_cuda(plan, b, x, omega)
+
+    def plain():
+        vanka.sweep_plain(A, per_color, b, x, omega)
+
+    ms = time_cold_ms(kern) / k
+    dev_ms = device_ms(kern, VANKA_REPS, ("vanka_residual", "vanka_update")
+                       ) / (VANKA_REPS * k)
+    bound = max(t_bytes, t_ops)
+    return {"n": A.n_rows, "width": A.data.shape[1],
+            "values": str(A.data.dtype)[6:], "vectors": str(vec)[6:],
+            "blocks": sum(d.shape[0] for d in blocks.color_dofs),
+            "bs": blocks.color_dofs[0].shape[1], "colours": k,
+            "step_err_of_budget": worst, "sweep_err_of_budget": whole,
+            "max_abs_err": err, "rtol": VANKA_RTOL,
+            "ok": worst <= VANKA_RTOL and whole <= VANKA_RTOL,
+            "repeats_bit_for_bit": repeats,
+            "x_unwritten": bool(torch.equal(x, x0)),
+            # a colour step (two launches): cold (L2 flushed before each
+            # sweep, the sweep's time over its colours), the kernels'
+            # device time back to back (profiler), the bound
+            "ms": ms, "device_ms": dev_ms, "bytes": nbytes,
+            "bound_ms": bound,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "pct_of_bound": 100.0 * bound / ms,
+            "device_pct_of_bound": 100.0 * bound / dev_ms,
+            # the plain chain's device time a colour step (every kernel)
+            "plain_ms": device_ms(plain, VANKA_REPS) / (VANKA_REPS * k),
+            "library_ms": None,
+            "host_ms_per_sweep": host_ms(kern, VANKA_REPS),
+            "plain_host_ms_per_sweep": host_ms(plain, VANKA_REPS)}
+
+
+def phase_channel_vanka(seen: list) -> dict:
+    """V1 on the smoothed levels of the channel solve's last hierarchy
+    (float32 operators; coarse to fine), against the plain chain."""
+    last = {A.n_rows: (A, blocks, omega) for A, blocks, omega in seen
+            if A.data.dtype == torch.float32}
+    rows = [vanka_level_row(*last[n]) for n in sorted(last)]
+    emit({"phase": "channel_vanka_kernel", "levels": rows})
+    bad = [r["n"] for r in rows if not (r["ok"] and r["repeats_bit_for_bit"]
+                                        and r["x_unwritten"])]
+    if not rows or bad:
+        raise AssertionError(f"V1 disagrees with the plain chain on the "
+                             f"levels of {bad} rows (or none was captured)")
+    return rows[-1]
+
+
 def phase_channel_main(prob, sys_, setup_s: float) -> dict:
     """The F-cycle ratchet of ns-channel (up to CHANNEL_NEWTON Newton steps
     a level), then make_temperature_system in the solved velocity (float64:
@@ -5195,8 +5379,12 @@ def phase_channel_main(prob, sys_, setup_s: float) -> dict:
     solve and read just after."""
     from femus_tpu_torch.apps import ns_bench
     from femus_tpu_torch.systems.system import launch_counts
+    from femus_tpu_torch.utils import telemetry
 
     res0 = _res_norm(sys_)
+    sites = telemetry.RECORDER.sites
+    steps0 = {k: sites.get(f"vanka.colour_{k}", 0) for k in ("kernel",
+                                                               "torch")}
     reset_launches()
     _flush_buffer.clear()
     torch.cuda.reset_peak_memory_stats()
@@ -5205,6 +5393,8 @@ def phase_channel_main(prob, sys_, setup_s: float) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = launch_counts()
+    colour_steps = {k: sites.get(f"vanka.colour_{k}", 0) - n
+                    for k, n in steps0.items()}
     peak = torch.cuda.max_memory_allocated()
     final = _res_norm(sys_)
     t0 = time.perf_counter()
@@ -5222,7 +5412,8 @@ def phase_channel_main(prob, sys_, setup_s: float) -> dict:
            "res_norm_drop": res0 / max(final, 1e-300),
            "linear_solves_converged": all(h["converged"]
                                           for h in sys_.history),
-           "kernel_launches": launches, "peak_device_bytes": peak,
+           "kernel_launches": launches, "vanka_colour_steps": colour_steps,
+           "peak_device_bytes": peak,
            "fields_finite": all(np.all(np.isfinite(prob.ml_sol.sol[-1][n]))
                                 for n in ("U", "V", "P")),
            "norms": {n: float(np.linalg.norm(prob.ml_sol.sol[-1][n]))
@@ -5244,6 +5435,11 @@ def phase_channel_main(prob, sys_, setup_s: float) -> dict:
                              f"{rep['res_norm_drop']:.3g}x")
     if launches["bell_spmv"] <= 0:
         raise AssertionError("channel_main: the solve launched no B1")
+    if not (launches["vanka_colour"] > 0 and colour_steps["torch"] == 0
+            and launches["vanka_colour"] == 2 * colour_steps["kernel"]):
+        raise AssertionError(f"channel_main: Vanka colour steps "
+                             f"{colour_steps} against V1 launches "
+                             f"{launches['vanka_colour']}")
     if not (rep["fields_finite"] and info["converged"]
             and np.isfinite(rep["temperature"]["norm"])):
         raise AssertionError(f"channel_main: temperature: {rep}")
@@ -5442,14 +5638,17 @@ def run_slice12() -> dict:
                          CHANNEL_NY)
         prob, sys_, setup_s = phase_channel_setup(ch)
         k = phase_kernel(sys_, "channel_kernel")
-        main = phase_channel_main(prob, sys_, setup_s)
-        del prob, sys_
+        with recorded_vanka([]) as seen:
+            main = phase_channel_main(prob, sys_, setup_s)
+        kv = phase_channel_vanka(seen)
+        del prob, sys_, seen
         disk = disk_neu(os.path.join(tmp, "disk.neu"), EX08_DISK_N)
         ex = phase_examples(disk, tmp)
         beam = channel_neu(os.path.join(tmp, "beam.neu"), CHANNEL_NX,
                            CHANNEL_NY, solid=True)
         fsi = phase_fsi_channel(beam)
-    return {"kernel": k, "main": main, "fsi": fsi, "examples": ex}
+    return {"kernel": k, "vanka": kv, "main": main, "fsi": fsi,
+            "examples": ex}
 
 
 def card_line() -> str:
@@ -5675,7 +5874,24 @@ def main() -> int:
         "source": "femus_tpu_torch/algebra/csrc/stencil_spmv.cu",
         "replaces": "femus_tpu/algebra/stencil.py:109",
         "launches": main3["cg_launches"]["stencil_spmv"],
-        **{key: k34["stencil_spmv"][key] for key in KERNEL_KEYS}}]})
+        **{key: k34["stencil_spmv"][key] for key in KERNEL_KEYS}}, {
+        "name": "vanka_colour", "route": "cuda",
+        "source": "femus_tpu_torch/algebra/csrc/vanka_colour.cu",
+        "replaces": "none (femus_tpu/algebra/vanka.py:vanka_smoother is "
+                    "XLA ops)",
+        # a colour step (two launches) at the channel's finest level;
+        # launches on the channel main path (2 a colour step), then on the
+        # other multiplicative Vanka paths
+        "unit": "colour step", "launches": s12["main"]["kernel_launches"][
+            "vanka_colour"],
+        "values": "f32",
+        **{key: s12["vanka"][key] for key in KERNEL_KEYS},
+        "device_ms": s12["vanka"]["device_ms"],
+        "fsi_launches": fmain["kernel_launches"]["vanka_colour"],
+        "fsi_transient_launches": ftr["kernel_launches"]["vanka_colour"],
+        "bous_launches": s8["main"]["kernel_launches"]["vanka_colour"],
+        "fsi_channel_launches":
+            s12["fsi"]["kernel_launches"]["vanka_colour"]}]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

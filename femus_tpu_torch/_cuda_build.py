@@ -27,7 +27,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 KERNEL_SOURCES = ["algebra/csrc/sell_spmv.cu",
                   "algebra/csrc/patch_stencil.cu",
                   "algebra/csrc/dia_spmv.cu",
-                  "algebra/csrc/stencil_spmv.cu"]
+                  "algebra/csrc/stencil_spmv.cu",
+                  "algebra/csrc/vanka_colour.cu"]
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 

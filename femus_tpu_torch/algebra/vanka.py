@@ -6,10 +6,14 @@ inverted together (batched LU), and applied as batched dense matvecs.
 Blocks are greedily coloured so blocks of one colour touch disjoint dofs:
 the multiplicative sweep refreshes the residual between colours
 (Gauss-Seidel over colours); the additive sweep applies all blocks at once
-with overlap averaging.
+with overlap averaging.  On the card the multiplicative sweep runs in one
+CUDA kernel call a sweep (``csrc/vanka_colour.cu``: a colour's own residual
+rows, then its block solves and update, two launches a colour); on the
+host it runs the plain PyTorch chain.
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 from typing import Optional, Sequence, Tuple
 
@@ -17,7 +21,9 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from .._cuda_build import load_library
 from ..utils.telemetry import count, lu_factor_waits
+from .bell import _DTYPE_CODE
 from .sparse import EllPattern
 
 
@@ -160,31 +166,54 @@ def _invert_blocks(data: torch.Tensor, dofs: torch.Tensor,
     return Ainv, rows_valid.to(data.dtype)
 
 
+def _correct(x, r, d, Ainv, rv, omega, scale=None):
+    """x + omega * (the blocks ``d``'s solves of the residual ``r``,
+    scattered; times ``scale`` for the additive sweep)."""
+    n = x.shape[0]
+    rb = torch.cat([r, r.new_zeros(1)])[d] * rv
+    delta = torch.bmm(Ainv, rb[:, :, None])[:, :, 0] * rv
+    upd = x.new_zeros(n + 1).index_add_(0, d.reshape(-1),
+                                        delta.reshape(-1))[:n]
+    return x + omega * (upd if scale is None else scale * upd)
+
+
+def sweep_plain(A, per_color, b, x, omega: float = 1.0, iters: int = 1):
+    """The multiplicative sweep in plain PyTorch, on any device: per colour
+    ((dofs, Ainv, rv) as ``vanka_smoother`` builds them) the whole
+    residual, then the colour's batched block solve and update.  What the
+    kernel (:func:`vanka_sweep_cuda`) computes; the host's path."""
+    for _ in range(iters):
+        for d, Ainv, rv in per_color:
+            x = _correct(x, b - A @ x, d, Ainv, rv, omega)
+    return x
+
+
 def vanka_smoother(A, blocks: VankaBlocks, omega: float = 1.0,
                    iters: int = 1, multiplicative: bool = True):
     """smooth(b, x) -> x.
 
     multiplicative=True: coloured sweeps, one batched solve per colour with
-    the residual refreshed between colours.  multiplicative=False: one
-    additive sweep with overlap averaging (needs omega ~0.5)."""
+    the residual refreshed between colours (an operator on the card
+    through the kernel, a host one through :func:`sweep_plain`; each colour
+    step counts ``vanka.colour_kernel`` or ``vanka.colour_torch``).
+    multiplicative=False: one additive sweep with overlap averaging (needs
+    omega ~0.5)."""
     n = blocks.n
-
-    def correct(x, r, d, Ainv, rv, scale=None):
-        rb = torch.cat([r, r.new_zeros(1)])[d] * rv
-        delta = torch.bmm(Ainv, rb[:, :, None])[:, :, 0] * rv
-        upd = x.new_zeros(n + 1).index_add_(0, d.reshape(-1),
-                                            delta.reshape(-1))[:n]
-        return x + omega * (upd if scale is None else scale * upd)
-
     if multiplicative:
         per_color = [(d, *_invert_blocks(A.data, d, s, n))
                      for d, s in zip(blocks.color_dofs, blocks.color_slots)]
+        steps = iters * len(per_color)
+        if A.data.is_cuda:
+            plan = colour_plan(A.data.contiguous(), A.cols.contiguous(),
+                               per_color, n)
 
-        def smooth(b, x):
-            for _ in range(iters):
-                for d, Ainv, rv in per_color:
-                    x = correct(x, b - A @ x, d, Ainv, rv)
-            return x
+            def smooth(b, x):
+                count("vanka.colour_kernel", steps)
+                return vanka_sweep_cuda(plan, b, x, omega, iters)
+        else:
+            def smooth(b, x):
+                count("vanka.colour_torch", steps)
+                return sweep_plain(A, per_color, b, x, omega, iters)
 
         return smooth
 
@@ -195,7 +224,138 @@ def vanka_smoother(A, blocks: VankaBlocks, omega: float = 1.0,
 
     def smooth(b, x):
         for _ in range(iters):
-            x = correct(x, b - A @ x, dofs, Ainv, rv, scale)
+            x = _correct(x, b - A @ x, dofs, Ainv, rv, omega, scale)
         return x
 
     return smooth
+
+
+# an update thread block's shared memory holds a block's residual at least
+_MAX_SMEM = 48 * 1024
+
+
+@dataclasses.dataclass
+class ColourPlan:
+    """A multiplicative sweep's operator and colours as the kernel reads
+    them, checked once: ELL ``data`` (n, width) and int64 ``cols``, each
+    colour's (nb_c, bs) int64 dof ids and its (nb_c, bs, bs) inverses
+    transposed (``ainv_t[c][k, j, i] = Ainv[k, i, j]``: the batched LU
+    solve's own column-major result, so no copy), and the ctypes arrays of
+    their addresses."""
+
+    data: torch.Tensor
+    cols: torch.Tensor
+    dofs: Tuple[torch.Tensor, ...]
+    ainv_t: Tuple[torch.Tensor, ...]
+    n: int
+    bs: int
+    rows: int                    # the largest colour's nb_c * bs
+    dof_ptrs: ctypes.Array
+    ainv_ptrs: ctypes.Array
+    n_blocks: ctypes.Array
+
+
+def colour_plan(data: torch.Tensor, cols: torch.Tensor, per_color,
+                n: int) -> ColourPlan:
+    """The :class:`ColourPlan` of ``per_color`` ((dofs, Ainv, rv) a colour,
+    as ``vanka_smoother`` builds them) over the ELL operator
+    (``data``, ``cols``) of ``n`` rows.  Raises on what the kernel does not
+    take.  Inverses in another layout than the LU solve's are copied."""
+    dofs = tuple(d for d, _, _ in per_color)
+    ainv = tuple(a for _, a, _ in per_color)
+    if not dofs:
+        raise ValueError("vanka colour plan: no colours")
+    dev = data.device
+    if not (data.is_cuda and all(t.device == dev
+                                 for t in (cols, *dofs, *ainv))):
+        raise ValueError("vanka colour plan: operator, dofs and inverses "
+                         "must share one CUDA device")
+    if data.dtype not in _DTYPE_CODE:
+        raise TypeError(f"vanka colour plan: value dtype {data.dtype} not "
+                        "supported")
+    adt = ainv[0].dtype
+    if adt not in (torch.float32, torch.float64) or any(
+            a.dtype != adt for a in ainv):
+        raise TypeError("vanka colour plan: inverses must be one of "
+                        "float32 or float64")
+    if cols.dtype != torch.int64 or any(d.dtype != torch.int64
+                                        for d in dofs):
+        raise TypeError("vanka colour plan: columns and dofs must be int64")
+    bs = dofs[0].shape[-1]
+    if (data.dim() != 2 or data.shape != cols.shape or data.shape[0] != n
+            or data.shape[1] < 1
+            or any(d.dim() != 2 or d.shape[1] != bs for d in dofs)
+            or any(a.shape != (d.shape[0], bs, bs)
+                   for d, a in zip(dofs, ainv))):
+        raise ValueError("vanka colour plan: shapes do not fit an (n, width) "
+                         "operator and (nb, bs) blocks")
+    if bs * ainv[0].element_size() > _MAX_SMEM:
+        raise ValueError(f"vanka colour plan: blocks of {bs} dofs exceed "
+                         "the update's shared memory")
+    if not all(t.is_contiguous() for t in (data, cols, *dofs)):
+        raise ValueError("vanka colour plan: operator and dofs must be "
+                         "contiguous")
+    ainv_t = tuple(a.transpose(1, 2).contiguous() for a in ainv)
+    k = len(dofs)
+    return ColourPlan(
+        data, cols, dofs, ainv_t, n, bs,
+        max(d.shape[0] for d in dofs) * bs,
+        (ctypes.c_void_p * k)(*[d.data_ptr() for d in dofs]),
+        (ctypes.c_void_p * k)(*[a.data_ptr() for a in ainv_t]),
+        (ctypes.c_longlong * k)(*[d.shape[0] for d in dofs]))
+
+
+def vanka_sweep_cuda(plan: ColourPlan, b: torch.Tensor, x: torch.Tensor,
+                     omega: float = 1.0, iters: int = 1) -> torch.Tensor:
+    """``iters`` multiplicative sweeps over the plan's colours through the
+    CUDA kernel (``csrc/vanka_colour.cu``), launched on the current stream:
+    a copy of ``x`` is updated in place and returned (``x`` is never
+    written).  Raises on anything the kernel does not take; there is no
+    fallback."""
+    ainv = plan.ainv_t[0]
+    if not (b.is_cuda and x.is_cuda and b.device == x.device == ainv.device):
+        raise ValueError("vanka_sweep_cuda: b, x and the plan must share one "
+                         "CUDA device")
+    if not (b.dtype == x.dtype == ainv.dtype):
+        raise TypeError(f"vanka_sweep_cuda: b {b.dtype} and x {x.dtype} "
+                        f"must be the inverses' {ainv.dtype}")
+    if b.shape != (plan.n,) or x.shape != (plan.n,):
+        raise ValueError(f"vanka_sweep_cuda: shapes b {tuple(b.shape)}, "
+                         f"x {tuple(x.shape)} do not fit n = {plan.n}")
+    if not (b.is_contiguous() and x.is_contiguous()):
+        raise ValueError("vanka_sweep_cuda: b and x must be contiguous")
+    y = x.clone()
+    r = x.new_empty(plan.rows)
+    k = len(plan.dofs)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    rc = _sweep_fn()(k, plan.dof_ptrs, plan.ainv_ptrs, plan.n_blocks,
+                     plan.bs, plan.data.data_ptr(),
+                     _DTYPE_CODE[plan.data.dtype], plan.cols.data_ptr(),
+                     plan.data.shape[1], b.data_ptr(), y.data_ptr(),
+                     r.data_ptr(), _DTYPE_CODE[x.dtype], plan.n, omega,
+                     iters, stream)
+    if rc != 0:
+        raise RuntimeError(f"vanka_colour kernel launch failed: CUDA error "
+                           f"{rc}")
+    vanka_sweep_cuda.launches += 2 * k * iters
+    return y
+
+
+vanka_sweep_cuda.launches = 0
+
+
+_fn = []
+
+
+def _sweep_fn():
+    """The kernel's C entry point (the library is built at first use)."""
+    if not _fn:
+        fn = load_library("algebra/csrc/vanka_colour.cu").vanka_sweep
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [ci, ctypes.POINTER(vp), ctypes.POINTER(vp),
+                       ctypes.POINTER(ctypes.c_longlong), ci, vp, ci, vp, ci,
+                       vp, vp, vp, ci, ctypes.c_longlong, ctypes.c_double,
+                       ci, vp]
+        fn.restype = ci
+        _fn.append(fn)
+    return _fn[0]

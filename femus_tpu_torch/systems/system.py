@@ -30,6 +30,7 @@ from ..algebra.sparse import op_from_scipy
 from ..algebra.stencil import spmv_stencil_cuda
 from ..algebra.transfer import (block_diag_prolongation, build_ptap_schedule,
                                 mask_prolongation, op_pair_from_scipy)
+from ..algebra.vanka import vanka_sweep_cuda
 from ..assembly.engine import Assembler, Unknown
 from ..utils.telemetry import count, records_solve, span, timed
 from .solution import DIRICHLET, MultiLevelSolution
@@ -37,7 +38,8 @@ from .solution import DIRICHLET, MultiLevelSolution
 # every CUDA kernel wrapper of the port, by kernel name; each counts its
 # own launches (``fn.launches``)
 KERNELS = {"bell_spmv": spmv_bell_cuda, "patch_stencil": spmv_patch_cuda,
-           "dia_spmv": spmv_dia_cuda, "stencil_spmv": spmv_stencil_cuda}
+           "dia_spmv": spmv_dia_cuda, "stencil_spmv": spmv_stencil_cuda,
+           "vanka_colour": vanka_sweep_cuda}
 
 
 def launch_counts() -> Dict[str, int]:

@@ -49,7 +49,9 @@ already holds its time.  Counters: ``host_wait.<site>`` at each program
 site that blocks on the device (counted whatever the device: on the host
 nothing waits), ``rebuild.<what>`` at each cache miss of a built step,
 transfer chain, BELL plan, assembly's device tables or kernel library
-(``kernel_build``: an ``nvcc`` run).
+(``kernel_build``: an ``nvcc`` run), ``vanka.colour_kernel`` and
+``vanka.colour_torch`` at each colour step of a multiplicative Vanka sweep
+(the CUDA kernel's or the plain PyTorch chain's).
 """
 from __future__ import annotations
 

@@ -179,7 +179,8 @@ def test_routing_puts_fine_level_on_bell(slice_runs):
     assert len(routing) == len({tuple(sorted(r.items())) for r in routing})
     # on the host the BELL matvec is the plain version: no kernel launches
     assert all(h["kernel_launches"] == {"bell_spmv": 0, "patch_stencil": 0,
-                                        "dia_spmv": 0, "stencil_spmv": 0}
+                                        "dia_spmv": 0, "stencil_spmv": 0,
+                                        "vanka_colour": 0}
                for h in slice_runs["ts"].history)
 
 
