@@ -22,7 +22,7 @@ import torch
 
 from .. import resolve_device
 from .._cuda_build import load_library
-from ..utils.telemetry import count, lu_factor_waits
+from ..utils.telemetry import count, lu_factor_waits, span
 from .bell import _DTYPE_CODE
 from .sparse import EllPattern
 
@@ -197,11 +197,17 @@ def vanka_smoother(A, blocks: VankaBlocks, omega: float = 1.0,
     through the kernel, a host one through :func:`sweep_plain`; each colour
     step counts ``vanka.colour_kernel`` or ``vanka.colour_torch``).
     multiplicative=False: one additive sweep with overlap averaging (needs
-    omega ~0.5)."""
+    omega ~0.5).  Either way the block inverses are one span
+    ``smoothers.vanka_invert`` and the counter ``vanka.blocks_inverted``
+    adds the blocks inverted."""
     n = blocks.n
+    count("vanka.blocks_inverted",
+          sum(d.shape[0] for d in blocks.color_dofs))
     if multiplicative:
-        per_color = [(d, *_invert_blocks(A.data, d, s, n))
-                     for d, s in zip(blocks.color_dofs, blocks.color_slots)]
+        with span("smoothers.vanka_invert"):
+            per_color = [(d, *_invert_blocks(A.data, d, s, n))
+                         for d, s in zip(blocks.color_dofs,
+                                         blocks.color_slots)]
         steps = iters * len(per_color)
         if A.data.is_cuda:
             plan = colour_plan(A.data.contiguous(), A.cols.contiguous(),
@@ -218,8 +224,9 @@ def vanka_smoother(A, blocks: VankaBlocks, omega: float = 1.0,
         return smooth
 
     dofs = torch.cat(blocks.color_dofs)
-    Ainv, rv = _invert_blocks(A.data, dofs, torch.cat(blocks.color_slots),
-                              n)
+    with span("smoothers.vanka_invert"):
+        Ainv, rv = _invert_blocks(A.data, dofs,
+                                  torch.cat(blocks.color_slots), n)
     scale = blocks.scale.to(A.data.dtype)
 
     def smooth(b, x):

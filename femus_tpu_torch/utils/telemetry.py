@@ -33,7 +33,9 @@ Spans (dotted names nest; the program opens them):
   operator), ``step.coarsen`` (the coarse operators: Galerkin PtAP and
   Dirichlet identity, or each rediscretized level's assembly),
   ``step.mg_setup`` (coarse BELL re-layout; ``mg_setup.smoothers``: Vanka
-  block inverses, Chebyshev lambda_max, Jacobi diagonals;
+  block inverses, Chebyshev lambda_max, Jacobi diagonals, and inside it
+  ``smoothers.vanka_invert``: a level's Vanka blocks gathered, factorised
+  and inverted;
   ``mg_setup.coarse_lu``: the coarsest dense LU) and ``step.krylov`` (the
   outer solve; each iteration's ``krylov.precond`` and ``krylov.orth``);
 - ``drive``: the solve's host work around its steps (gather and upload,
@@ -51,7 +53,8 @@ nothing waits), ``rebuild.<what>`` at each cache miss of a built step,
 transfer chain, BELL plan, assembly's device tables or kernel library
 (``kernel_build``: an ``nvcc`` run), ``vanka.colour_kernel`` and
 ``vanka.colour_torch`` at each colour step of a multiplicative Vanka sweep
-(the CUDA kernel's or the plain PyTorch chain's).
+(the CUDA kernel's or the plain PyTorch chain's), ``vanka.blocks_inverted``
+at each level's Vanka set-up (the blocks it inverts, from host shapes).
 """
 from __future__ import annotations
 
@@ -65,6 +68,7 @@ import types
 from collections import defaultdict
 from typing import Dict, Iterator, List, Tuple
 
+import torch
 from torch.autograd import _profiler_enabled
 
 # solve records kept (the newest)
@@ -271,7 +275,11 @@ def lu_factor_waits(batch: int, n: int) -> int:
     the batch to MAGMA (batch > 1 and n > 128, or batch > 16 and n > 16),
     one device and one (n <= 32) or two stream synchronisations inside
     (torch 2.11, CUDA 12.8 on an H100: cuSOLVER's and cuBLAS's routes
-    wait for nothing)."""
+    wait for nothing, and so does every batch once
+    ``torch.backends.cuda.preferred_linalg_library`` names cuSOLVER)."""
+    if (torch.backends.cuda.preferred_linalg_library()
+            == torch._C._LinalgBackend.Cusolver):
+        return 1
     if batch > 1 and (n > 128 or (batch > 16 and n > 16)):
         return 3 if n <= 32 else 4
     return 1
