@@ -222,7 +222,11 @@ NONLOCAL_*):
                     falls 10^3x, T within [-0.5, 0.5] to 1e-3, Nu on the
                     hot wall (``hot_wall_nusselt``), u_max on x = 0.5 and
                     v_max on y = 0.5 times sqrt(Ra Pr) within BOUS_TOL of
-                    2.243, 16.178 and 19.617;
+                    2.243, 16.178 and 19.617, and every Vanka block
+                    inverted by V2 with no LU wait;
+    vanka_invert_kernel (case "cavity") — V2 on the solve's finest
+                    smoothed level (60-dof blocks), as on the channel
+                    below;
 33. bous_reference — the cavity on unit_box((4,4)), 3 levels: the card
                     (float32) against the host (float64), every field to
                     1e-3 relative;
@@ -430,6 +434,17 @@ read those files:
                     budget, the sweep repeating bit for bit, x unwritten;
                     a colour step's cold time, device time (profiler),
                     HBM bound, and the plain chain's device time;
+    vanka_invert_kernel (case "channel") — V2 (the Vanka block inverse
+                    kernel) on the same three levels: each colour's
+                    inverses against torch.linalg.inv of the same blocks
+                    in float64, within float32's eps of cond_inf times
+                    max |inv| a block, repeating bit for bit; a level's
+                    set-up (a launch a colour) cold, back to back and on
+                    the host, beside its HBM bound (slots, values,
+                    inverses); the plain LU chain's device and host time
+                    and torch.linalg.inv's device time on the same blocks;
+                    channel_main gates every block inverted by V2 with no
+                    LU wait;
 54. fsi_channel   — apps.fsi_bench.make_fsi_system on the channel with the
                     beam (group 5), FSI_CHANNEL_LEVELS levels (27,344
                     dofs; see FSI_CHANNEL_LIN_ITERS for why not 3),
@@ -2932,7 +2947,10 @@ def phase_bous_main(sys_, ml_sol, setup_s: float) -> dict:
     """The slice's main path: the Boussinesq Newton solve of
     boussinesq-cavity-128 on the card, with the de Vahl Davis gates."""
     from femus_tpu_torch.systems.system import launch_counts
+    from femus_tpu_torch.utils import telemetry
 
+    sites = telemetry.RECORDER.sites
+    inv0 = {k: sites.get(k, 0) for k in INVERT_SITES}
     reset_launches()
     _flush_buffer.clear()
     torch.cuda.reset_peak_memory_stats()
@@ -2941,6 +2959,7 @@ def phase_bous_main(sys_, ml_sol, setup_s: float) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = launch_counts()
+    inverted = {k: sites.get(k, 0) - n for k, n in inv0.items()}
     hist = sys_.history
     for h in hist:
         emit({"phase": "bous_step", "it": h["newton_it"],
@@ -2959,7 +2978,7 @@ def phase_bous_main(sys_, ml_sol, setup_s: float) -> dict:
            "res_norm_drop": drop,
            "all_converged": all(h["converged"] for h in hist),
            "observables": obs, "benchmark": BOUS_BENCH, "rel_err": rel,
-           "kernel_launches": launches,
+           "kernel_launches": launches, "vanka_inversions": inverted,
            "peak_device_bytes": torch.cuda.max_memory_allocated(),
            "levels": [a.n_dofs for a in sys_.assemblers],
            "fields_finite": all(np.all(np.isfinite(v)) for v in sol.values()),
@@ -2978,6 +2997,8 @@ def phase_bous_main(sys_, ml_sol, setup_s: float) -> dict:
             and rep["tensors_on_cuda"]):
         raise AssertionError("bous_main: no B1 launch, tensors off the "
                              "card or non-finite fields")
+    if not inversions_on_v2(inverted):
+        raise AssertionError(f"bous_main: Vanka inversions {inverted}")
     return rep
 
 
@@ -3595,8 +3616,10 @@ def run_slice8() -> dict:
           "n_dofs": bsys.assemblers[-1].n_dofs,
           "levels": [a.n_dofs for a in bsys.assemblers]})
     out = {"kernel": phase_kernel(bsys, "bous_kernel")}
-    out["main"] = phase_bous_main(bsys, bsol, setup_s)
-    del bsys, bsol
+    with recorded_vanka([]) as seen:
+        out["main"] = phase_bous_main(bsys, bsol, setup_s)
+    out["invert"] = phase_vanka_invert("cavity", seen, finest_only=True)
+    del bsys, bsol, seen
     phase_bous_reference()
     out["forms"] = phase_forms()
     out["surface"] = phase_surface()
@@ -5372,6 +5395,154 @@ def phase_channel_vanka(seen: list) -> dict:
     return rows[-1]
 
 
+# the Vanka set-up's counters: blocks inverted, those V2 inverted, and the
+# plain chain's LU waits (none on the card)
+INVERT_SITES = ("vanka.blocks_inverted", "vanka.invert_kernel",
+                "host_wait.vanka_lu")
+
+
+def inversions_on_v2(inverted: dict) -> bool:
+    """Every block a solve inverted went through V2, and no LU waited."""
+    return (inverted["vanka.blocks_inverted"] > 0
+            and inverted["vanka.invert_kernel"]
+            == inverted["vanka.blocks_inverted"]
+            and inverted["host_wait.vanka_lu"] == 0)
+
+
+def vanka_invert_work(dofs, data_dtype) -> tuple:
+    """(HBM bytes, flops) of V2 on the blocks ``dofs`` (nb, bs): each
+    block's int64 slots read, its values gathered once (at their stored
+    type), its inverse and row mask written, its dof ids read; Gauss-Jordan
+    takes 2 bs^3 flops a block."""
+    nb, bs = dofs.shape
+    x = 8 if data_dtype == torch.float64 else 4
+    vsz = torch.empty(0, dtype=data_dtype).element_size()
+    nbytes = nb * (bs * bs * (8 + vsz + x) + bs * (8 + x))
+    return nbytes, 2 * nb * bs ** 3
+
+
+def _inverse_error(Ainv, data, d, s, n) -> tuple:
+    """(worst max |Ainv - inv| / (cond_inf max |inv|), worst max |Ainv -
+    inv| / max |inv|) over the blocks, inv the float64 inverse of the same
+    gathered blocks (torch.linalg.inv on the card)."""
+    from femus_tpu_torch.algebra import vanka
+
+    blocks = vanka.gather_blocks(data.double(), d, s, n)
+    ref = torch.linalg.inv(blocks)
+    diff = (Ainv.double() - ref).abs().amax(dim=(1, 2))
+    big = ref.abs().amax(dim=(1, 2))
+    cond = blocks.abs().sum(-1).amax(-1) * ref.abs().sum(-1).amax(-1)
+    return (float((diff / (cond * big)).max()), float((diff / big).max()))
+
+
+VANKA_INVERT_REPS = 20
+
+
+def enqueue_ms(fn, reps: int) -> float:
+    """Host milliseconds a call of ``fn`` takes to return, the card left
+    to drain after the clock stops (what a caller that does not wait
+    pays)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    ms = 1e3 * (time.perf_counter() - t0) / reps
+    torch.cuda.synchronize()
+    return ms
+
+
+def vanka_invert_row(A, blocks) -> dict:
+    """V2 on one smoothed level, all colours as ``vanka_smoother`` inverts
+    them: the worst error against float64, the kernel's cold and
+    back-to-back time and its host time, its bound, the plain LU chain's
+    device and host time and torch.linalg.inv's device time on the same
+    gathered blocks (the library's yardstick)."""
+    from femus_tpu_torch.algebra import vanka
+
+    data, n = A.data.contiguous(), blocks.n
+    pairs = list(zip(blocks.color_dofs, blocks.color_slots))
+    k = len(pairs)
+    xdt = torch.float64 if data.dtype == torch.float64 else torch.float32
+    worst, worst_abs = 0.0, 0.0
+    for d, s in pairs:
+        Ainv, _ = vanka.vanka_invert_cuda(data, d, s, n)
+        e, ea = _inverse_error(Ainv, data, d, s, n)
+        worst, worst_abs = max(worst, e), max(worst_abs, ea)
+    first, _ = vanka.vanka_invert_cuda(data, *pairs[0], n)
+    repeats = bool(torch.equal(vanka.vanka_invert_cuda(data, *pairs[0],
+                                                       n)[0], first))
+    work = [vanka_invert_work(d, data.dtype) for d, _ in pairs]
+    nbytes, flops = sum(w[0] for w in work), sum(w[1] for w in work)
+    peak = F64_FLOPS_PER_S if xdt == torch.float64 else F32_FLOPS_PER_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
+    bound = max(t_bytes, t_ops)
+
+    def kern():
+        for d, s in pairs:
+            vanka.vanka_invert_cuda(data, d, s, n)
+
+    def plain():
+        for d, s in pairs:
+            vanka.invert_plain(data, d, s, n)
+
+    gathered = [vanka.gather_blocks(data.to(xdt), d, s, n)
+                for d, s in pairs]
+
+    def library():
+        for g in gathered:
+            torch.linalg.inv(g)
+
+    ms = time_cold_ms(kern)
+    b2b = time_ms(kern, VANKA_INVERT_REPS)
+    return {"n": A.n_rows, "values": str(data.dtype)[6:],
+            "inverses": str(xdt)[6:],
+            "blocks": sum(d.shape[0] for d, _ in pairs),
+            "bs": pairs[0][0].shape[1], "colours": k,
+            "largest_colour": max(d.shape[0] for d, _ in pairs),
+            "err_of_cond": worst, "rel_err": worst_abs,
+            "err_limit": torch.finfo(xdt).eps,
+            "ok": worst <= torch.finfo(xdt).eps,
+            "repeats_bit_for_bit": repeats,
+            # a level's set-up (every colour, one launch each): cold (L2
+            # flushed before the level), back to back, the bound
+            "ms": ms, "time_ms": b2b, "bytes": nbytes, "flops": flops,
+            "bound_ms": bound,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "pct_of_bound": 100.0 * bound / ms,
+            "b2b_pct_of_bound": 100.0 * bound / b2b,
+            "host_ms_per_colour": host_ms(kern, VANKA_INVERT_REPS) / k,
+            "enqueue_ms_per_colour": enqueue_ms(kern, VANKA_INVERT_REPS)
+            / k,
+            # the plain chain (gather, lu_factor, lu_solve) on the card:
+            # its kernels' device time and its host time, a level
+            "plain_ms": device_ms(plain, VANKA_INVERT_REPS)
+            / VANKA_INVERT_REPS,
+            "plain_host_ms_per_colour": host_ms(plain, VANKA_INVERT_REPS)
+            / k,
+            "library_ms": device_ms(library, VANKA_INVERT_REPS)
+            / VANKA_INVERT_REPS}
+
+
+def phase_vanka_invert(case: str, seen: list, finest_only: bool = False
+                       ) -> dict:
+    """V2 on the float32 smoothed levels of a solve's last hierarchy
+    (coarse to fine; the finest alone with ``finest_only``), captured with
+    ``recorded_vanka``; returns the finest level's row."""
+    last = {A.n_rows: (A, blocks) for A, blocks, _ in seen
+            if A.data.dtype == torch.float32}
+    ns = sorted(last)[-1:] if finest_only else sorted(last)
+    rows = [vanka_invert_row(*last[n]) for n in ns]
+    emit({"phase": "vanka_invert_kernel", "case": case, "levels": rows})
+    bad = [r["n"] for r in rows if not (r["ok"]
+                                        and r["repeats_bit_for_bit"])]
+    if not rows or bad:
+        raise AssertionError(f"V2 disagrees with the float64 inverse on the "
+                             f"{case} levels of {bad} rows (or none was "
+                             f"captured)")
+    return rows[-1]
+
+
 def phase_channel_main(prob, sys_, setup_s: float) -> dict:
     """The F-cycle ratchet of ns-channel (up to CHANNEL_NEWTON Newton steps
     a level), then make_temperature_system in the solved velocity (float64:
@@ -5385,6 +5556,7 @@ def phase_channel_main(prob, sys_, setup_s: float) -> dict:
     sites = telemetry.RECORDER.sites
     steps0 = {k: sites.get(f"vanka.colour_{k}", 0) for k in ("kernel",
                                                                "torch")}
+    inv0 = {k: sites.get(k, 0) for k in INVERT_SITES}
     reset_launches()
     _flush_buffer.clear()
     torch.cuda.reset_peak_memory_stats()
@@ -5395,6 +5567,7 @@ def phase_channel_main(prob, sys_, setup_s: float) -> dict:
     launches = launch_counts()
     colour_steps = {k: sites.get(f"vanka.colour_{k}", 0) - n
                     for k, n in steps0.items()}
+    inverted = {k: sites.get(k, 0) - n for k, n in inv0.items()}
     peak = torch.cuda.max_memory_allocated()
     final = _res_norm(sys_)
     t0 = time.perf_counter()
@@ -5413,7 +5586,7 @@ def phase_channel_main(prob, sys_, setup_s: float) -> dict:
            "linear_solves_converged": all(h["converged"]
                                           for h in sys_.history),
            "kernel_launches": launches, "vanka_colour_steps": colour_steps,
-           "peak_device_bytes": peak,
+           "vanka_inversions": inverted, "peak_device_bytes": peak,
            "fields_finite": all(np.all(np.isfinite(prob.ml_sol.sol[-1][n]))
                                 for n in ("U", "V", "P")),
            "norms": {n: float(np.linalg.norm(prob.ml_sol.sol[-1][n]))
@@ -5440,6 +5613,8 @@ def phase_channel_main(prob, sys_, setup_s: float) -> dict:
         raise AssertionError(f"channel_main: Vanka colour steps "
                              f"{colour_steps} against V1 launches "
                              f"{launches['vanka_colour']}")
+    if not inversions_on_v2(inverted):
+        raise AssertionError(f"channel_main: Vanka inversions {inverted}")
     if not (rep["fields_finite"] and info["converged"]
             and np.isfinite(rep["temperature"]["norm"])):
         raise AssertionError(f"channel_main: temperature: {rep}")
@@ -5641,14 +5816,15 @@ def run_slice12() -> dict:
         with recorded_vanka([]) as seen:
             main = phase_channel_main(prob, sys_, setup_s)
         kv = phase_channel_vanka(seen)
+        kinv = phase_vanka_invert("channel", seen)
         del prob, sys_, seen
         disk = disk_neu(os.path.join(tmp, "disk.neu"), EX08_DISK_N)
         ex = phase_examples(disk, tmp)
         beam = channel_neu(os.path.join(tmp, "beam.neu"), CHANNEL_NX,
                            CHANNEL_NY, solid=True)
         fsi = phase_fsi_channel(beam)
-    return {"kernel": k, "vanka": kv, "main": main, "fsi": fsi,
-            "examples": ex}
+    return {"kernel": k, "vanka": kv, "invert": kinv, "main": main,
+            "fsi": fsi, "examples": ex}
 
 
 def card_line() -> str:
@@ -5891,7 +6067,25 @@ def main() -> int:
         "fsi_transient_launches": ftr["kernel_launches"]["vanka_colour"],
         "bous_launches": s8["main"]["kernel_launches"]["vanka_colour"],
         "fsi_channel_launches":
-            s12["fsi"]["kernel_launches"]["vanka_colour"]}]})
+            s12["fsi"]["kernel_launches"]["vanka_colour"]}, {
+        "name": "vanka_invert", "route": "cuda",
+        "source": "femus_tpu_torch/algebra/csrc/vanka_invert.cu",
+        "replaces": "none (femus_tpu/algebra/vanka.py:_invert_blocks is "
+                    "jax.scipy.linalg.lu_factor and lu_solve)",
+        # a level's set-up (one launch a colour) at the channel's finest
+        # level; launches on the channel main path (one a colour a
+        # hierarchy), then on the other Vanka paths
+        "unit": "level set-up", "launches": s12["main"]["kernel_launches"][
+            "vanka_invert"],
+        "values": "f32", "max_abs_err": s12["invert"]["rel_err"],
+        **{key: s12["invert"][key] for key in KERNEL_KEYS
+           if key != "max_abs_err"},
+        "cavity_ms": s8["invert"]["ms"],
+        "cavity_bound_ms": s8["invert"]["bound_ms"],
+        "fsi_launches": fmain["kernel_launches"]["vanka_invert"],
+        "bous_launches": s8["main"]["kernel_launches"]["vanka_invert"],
+        "fsi_channel_launches":
+            s12["fsi"]["kernel_launches"]["vanka_invert"]}]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

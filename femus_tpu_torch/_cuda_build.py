@@ -28,7 +28,8 @@ KERNEL_SOURCES = ["algebra/csrc/sell_spmv.cu",
                   "algebra/csrc/patch_stencil.cu",
                   "algebra/csrc/dia_spmv.cu",
                   "algebra/csrc/stencil_spmv.cu",
-                  "algebra/csrc/vanka_colour.cu"]
+                  "algebra/csrc/vanka_colour.cu",
+                  "algebra/csrc/vanka_invert.cu"]
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 

@@ -2,7 +2,10 @@
 
 Blocks are the dof patches of a few consecutive elements.  All block
 matrices are extracted from the ELL operator with one precomputed gather,
-inverted together (batched LU), and applied as batched dense matvecs.
+inverted together, and applied as batched dense matvecs.  On the card a
+colour's blocks are gathered and inverted in one CUDA kernel call
+(``csrc/vanka_invert.cu``, Gauss-Jordan with partial pivoting); on the host
+by the plain chain (gather, batched LU, LU solves of the identity).
 Blocks are greedily coloured so blocks of one colour touch disjoint dofs:
 the multiplicative sweep refreshes the residual between colours
 (Gauss-Seidel over colours); the additive sweep applies all blocks at once
@@ -146,24 +149,109 @@ def lut_with_miss(pattern: EllPattern):
 
 def _invert_blocks(data: torch.Tensor, dofs: torch.Tensor,
                    slots: torch.Tensor, n: int):
-    """Explicit batched block inverses (batched LU, then LU solves of the
-    identity), so each smoother application is one batched dense matvec.
-    ``slots`` index the flat operator values ``data``, ``data.numel()``
-    marking a miss.  Padding rows/cols of a block become identity.  Blocks
-    of bfloat16 values are inverted in float32 (there is no bfloat16 LU),
-    and the inverses stay float32, the dtype of the cycle's vectors."""
-    data = data.float() if data.dtype == torch.bfloat16 else data
+    """Explicit batched block inverses, so each smoother application is
+    one batched dense matvec: ``(Ainv, rv)``, ``Ainv`` (nb, bs, bs) and
+    ``rv`` (nb, bs) the blocks' row mask.  ``slots`` index the flat
+    operator values ``data``, ``data.numel()`` marking a miss.  Padding
+    rows/cols of a block become identity.  Blocks of bfloat16 or float32
+    values are inverted in float32, float64 ones in float64.  Values on
+    the card take kernel V2 (:func:`vanka_invert_cuda`, one launch, no
+    host wait), host values the plain chain (:func:`invert_plain`)."""
+    if data.is_cuda:
+        return vanka_invert_cuda(data.contiguous(), dofs, slots, n)
+    return invert_plain(data, dofs, slots, n)
+
+
+def gather_blocks(data: torch.Tensor, dofs: torch.Tensor,
+                  slots: torch.Tensor, n: int) -> torch.Tensor:
+    """The (nb, bs, bs) block matrices in ``data``'s dtype: the values at
+    ``slots`` (``data.numel()`` a miss: zero), identity on padding rows and
+    columns."""
     flat = torch.cat([data.reshape(-1), data.new_zeros(1)])
     Ab = flat[slots]                                   # (nb, bs, bs)
     rows_valid = dofs < n                              # (nb, bs)
-    bs = dofs.shape[1]
-    eye = torch.eye(bs, dtype=data.dtype, device=data.device)
+    eye = torch.eye(dofs.shape[1], dtype=data.dtype, device=data.device)
     Ab = torch.where(rows_valid[:, :, None] & rows_valid[:, None, :], Ab, 0.0)
-    Ab = Ab + (~rows_valid).to(data.dtype)[:, :, None] * eye
+    return Ab + (~rows_valid).to(data.dtype)[:, :, None] * eye
+
+
+def invert_plain(data: torch.Tensor, dofs: torch.Tensor,
+                 slots: torch.Tensor, n: int):
+    """:func:`_invert_blocks` in plain PyTorch, on any device: the gather,
+    then a batched LU and LU solves of the identity (bfloat16 values in
+    float32: there is no bfloat16 LU).  What the kernel computes; the
+    host's path."""
+    data = data.float() if data.dtype == torch.bfloat16 else data
+    Ab = gather_blocks(data, dofs, slots, n)
+    eye = torch.eye(dofs.shape[1], dtype=data.dtype, device=data.device)
     lu, piv = torch.linalg.lu_factor(Ab)
     count("host_wait.vanka_lu", lu_factor_waits(*Ab.shape[:2]))
     Ainv = torch.linalg.lu_solve(lu, piv, eye.expand(Ab.shape))
-    return Ainv, rows_valid.to(data.dtype)
+    return Ainv, (dofs < n).to(data.dtype)
+
+
+# the dynamic shared memory a V2 thread block may take (H100: 227 kB)
+_MAX_INVERT_SMEM = 227 * 1024
+
+
+def invert_smem_bytes(bs: int, dtype: torch.dtype) -> int:
+    """Shared memory of one V2 thread block: a block of ``bs`` dofs in an
+    odd leading dimension, two cached vectors and three int vectors, in
+    float64 for float64 values and float32 otherwise."""
+    x = 8 if dtype == torch.float64 else 4
+    return (bs * (bs | 1) + 2 * bs) * x + 3 * bs * 4
+
+
+def vanka_invert_cuda(data: torch.Tensor, dofs: torch.Tensor,
+                      slots: torch.Tensor, n: int):
+    """The blocks' inverses through the CUDA kernel V2
+    (``csrc/vanka_invert.cu``), one launch on the current stream and no
+    host wait: ``(Ainv, rv)`` as :func:`invert_plain` gives them.  The
+    kernel writes the inverses transposed, so ``Ainv`` is the
+    ``transpose(1, 2)`` view of a contiguous (nb, bs, bs) array (what
+    :func:`colour_plan` reads without a copy).  A singular block gives
+    non-finite entries, as the LU does, and raises nothing.  Counts
+    ``vanka.invert_kernel`` by the blocks inverted.  Raises on anything
+    the kernel does not take; there is no fallback."""
+    dev = data.device
+    if not (data.is_cuda and dofs.device == dev and slots.device == dev):
+        raise ValueError("vanka_invert_cuda: values, dofs and slots must "
+                         "share one CUDA device")
+    if data.dtype not in _DTYPE_CODE:
+        raise TypeError(f"vanka_invert_cuda: value dtype {data.dtype} not "
+                        "supported")
+    if dofs.dtype != torch.int64 or slots.dtype != torch.int64:
+        raise TypeError("vanka_invert_cuda: dofs and slots must be int64")
+    if dofs.dim() != 2 or slots.shape != (*dofs.shape, dofs.shape[1]):
+        raise ValueError(f"vanka_invert_cuda: shapes dofs "
+                         f"{tuple(dofs.shape)}, slots {tuple(slots.shape)} "
+                         "are not (nb, bs) and (nb, bs, bs)")
+    if not all(t.is_contiguous() for t in (data, dofs, slots)):
+        raise ValueError("vanka_invert_cuda: values, dofs and slots must be "
+                         "contiguous")
+    nb, bs = dofs.shape
+    if bs < 1 or n < 1:
+        raise ValueError(f"vanka_invert_cuda: blocks of {bs} dofs over "
+                         f"{n} rows")
+    if invert_smem_bytes(bs, data.dtype) > _MAX_INVERT_SMEM:
+        raise ValueError(f"vanka_invert_cuda: blocks of {bs} dofs in "
+                         f"{data.dtype} exceed the card's shared memory")
+    xdt = torch.float64 if data.dtype == torch.float64 else torch.float32
+    ainv_t = torch.empty(nb, bs, bs, dtype=xdt, device=dev)
+    rv = torch.empty(nb, bs, dtype=xdt, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = _invert_fn()(data.data_ptr(), _DTYPE_CODE[data.dtype], data.numel(),
+                      dofs.data_ptr(), slots.data_ptr(), nb, bs,
+                      ainv_t.data_ptr(), rv.data_ptr(), n, stream)
+    if rc != 0:
+        raise RuntimeError(f"vanka_invert kernel launch failed: CUDA error "
+                           f"{rc}")
+    vanka_invert_cuda.launches += 1
+    count("vanka.invert_kernel", nb)
+    return ainv_t.transpose(1, 2), rv
+
+
+vanka_invert_cuda.launches = 0
 
 
 def _correct(x, r, d, Ainv, rv, omega, scale=None):
@@ -199,7 +287,8 @@ def vanka_smoother(A, blocks: VankaBlocks, omega: float = 1.0,
     multiplicative=False: one additive sweep with overlap averaging (needs
     omega ~0.5).  Either way the block inverses are one span
     ``smoothers.vanka_invert`` and the counter ``vanka.blocks_inverted``
-    adds the blocks inverted."""
+    adds the blocks inverted (``vanka.invert_kernel`` those kernel V2
+    inverted, on the card)."""
     n = blocks.n
     count("vanka.blocks_inverted",
           sum(d.shape[0] for d in blocks.color_dofs))
@@ -246,9 +335,9 @@ class ColourPlan:
     """A multiplicative sweep's operator and colours as the kernel reads
     them, checked once: ELL ``data`` (n, width) and int64 ``cols``, each
     colour's (nb_c, bs) int64 dof ids and its (nb_c, bs, bs) inverses
-    transposed (``ainv_t[c][k, j, i] = Ainv[k, i, j]``: the batched LU
-    solve's own column-major result, so no copy), and the ctypes arrays of
-    their addresses."""
+    transposed (``ainv_t[c][k, j, i] = Ainv[k, i, j]``: what kernel V2
+    writes and the batched LU solve leaves, so no copy), and the ctypes
+    arrays of their addresses."""
 
     data: torch.Tensor
     cols: torch.Tensor
@@ -267,7 +356,8 @@ def colour_plan(data: torch.Tensor, cols: torch.Tensor, per_color,
     """The :class:`ColourPlan` of ``per_color`` ((dofs, Ainv, rv) a colour,
     as ``vanka_smoother`` builds them) over the ELL operator
     (``data``, ``cols``) of ``n`` rows.  Raises on what the kernel does not
-    take.  Inverses in another layout than the LU solve's are copied."""
+    take.  Inverses in another layout than V2's and the LU solve's are
+    copied."""
     dofs = tuple(d for d, _, _ in per_color)
     ainv = tuple(a for _, a, _ in per_color)
     if not dofs:
@@ -352,6 +442,19 @@ vanka_sweep_cuda.launches = 0
 
 
 _fn = []
+_inv_fn = []
+
+
+def _invert_fn():
+    """V2's C entry point (the library is built at first use)."""
+    if not _inv_fn:
+        fn = load_library("algebra/csrc/vanka_invert.cu").vanka_invert
+        vp, ll = ctypes.c_void_p, ctypes.c_longlong
+        fn.argtypes = [vp, ctypes.c_int, ll, vp, vp, ll, ctypes.c_int, vp, vp,
+                       ll, vp]
+        fn.restype = ctypes.c_int
+        _inv_fn.append(fn)
+    return _inv_fn[0]
 
 
 def _sweep_fn():

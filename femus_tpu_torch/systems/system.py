@@ -30,7 +30,7 @@ from ..algebra.sparse import op_from_scipy
 from ..algebra.stencil import spmv_stencil_cuda
 from ..algebra.transfer import (block_diag_prolongation, build_ptap_schedule,
                                 mask_prolongation, op_pair_from_scipy)
-from ..algebra.vanka import vanka_sweep_cuda
+from ..algebra.vanka import vanka_invert_cuda, vanka_sweep_cuda
 from ..assembly.engine import Assembler, Unknown
 from ..utils.telemetry import count, records_solve, span, timed
 from .solution import DIRICHLET, MultiLevelSolution
@@ -39,7 +39,8 @@ from .solution import DIRICHLET, MultiLevelSolution
 # own launches (``fn.launches``)
 KERNELS = {"bell_spmv": spmv_bell_cuda, "patch_stencil": spmv_patch_cuda,
            "dia_spmv": spmv_dia_cuda, "stencil_spmv": spmv_stencil_cuda,
-           "vanka_colour": vanka_sweep_cuda}
+           "vanka_colour": vanka_sweep_cuda,
+           "vanka_invert": vanka_invert_cuda}
 
 
 def launch_counts() -> Dict[str, int]:

@@ -276,7 +276,10 @@ def lu_factor_waits(batch: int, n: int) -> int:
     one device and one (n <= 32) or two stream synchronisations inside
     (torch 2.11, CUDA 12.8 on an H100: cuSOLVER's and cuBLAS's routes
     wait for nothing, and so does every batch once
-    ``torch.backends.cuda.preferred_linalg_library`` names cuSOLVER)."""
+    ``torch.backends.cuda.preferred_linalg_library`` names cuSOLVER).
+    Only the plain Vanka inversion (``algebra.vanka.invert_plain``) counts
+    it, as ``host_wait.vanka_lu``: host operators take that chain, while
+    the card's Vanka set-up runs kernel V2 and calls no LU."""
     if (torch.backends.cuda.preferred_linalg_library()
             == torch._C._LinalgBackend.Cusolver):
         return 1

@@ -569,7 +569,7 @@ def test_patch_step_reports_kernel_launches_and_routing(patch_solves):
     assert info["kernel_launches"] == dict.fromkeys(tsys.KERNELS, 0)
     assert set(tsys.launch_counts()) == {"bell_spmv", "patch_stencil",
                                          "dia_spmv", "stencil_spmv",
-                                         "vanka_colour"}
+                                         "vanka_colour", "vanka_invert"}
     routing = s.solver_info()["routing"]
     sizes = [a.n_dofs for a in s.assemblers]
     assert {"n_rows": sizes[0], "path": "lu",

@@ -180,7 +180,7 @@ def test_routing_puts_fine_level_on_bell(slice_runs):
     # on the host the BELL matvec is the plain version: no kernel launches
     assert all(h["kernel_launches"] == {"bell_spmv": 0, "patch_stencil": 0,
                                         "dia_spmv": 0, "stencil_spmv": 0,
-                                        "vanka_colour": 0}
+                                        "vanka_colour": 0, "vanka_invert": 0}
                for h in slice_runs["ts"].history)
 
 
