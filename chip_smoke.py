@@ -223,7 +223,7 @@ NONLOCAL_*):
                     hot wall (``hot_wall_nusselt``), u_max on x = 0.5 and
                     v_max on y = 0.5 times sqrt(Ra Pr) within BOUS_TOL of
                     2.243, 16.178 and 19.617, and every Vanka block
-                    inverted by V2 with no LU wait;
+                    inverted by V2;
     vanka_invert_kernel (case "cavity") — V2 on the solve's finest
                     smoothed level (60-dof blocks), as on the channel
                     below;
@@ -443,8 +443,7 @@ read those files:
                     the host, beside its HBM bound (slots, values,
                     inverses); the plain LU chain's device and host time
                     and torch.linalg.inv's device time on the same blocks;
-                    channel_main gates every block inverted by V2 with no
-                    LU wait;
+                    channel_main gates every block inverted by V2;
 54. fsi_channel   — apps.fsi_bench.make_fsi_system on the channel with the
                     beam (group 5), FSI_CHANNEL_LEVELS levels (27,344
                     dofs; see FSI_CHANNEL_LIN_ITERS for why not 3),
@@ -980,8 +979,9 @@ def _all_on_cuda(sys_) -> bool:
         if rs is not None:
             tensors += [rs[0].data, rs[0].cols, rs[1]]
     for dev in sys_._bell_plans.values():
-        tensors += [dev.cols, dev.slice_ptr, dev.row_order, dev.src,
-                    dev.diag_slot]
+        if dev is not None:
+            tensors += [dev.cols, dev.slice_ptr, dev.row_order, dev.src,
+                        dev.diag_slot]
     return all(t.is_cuda for t in tensors)
 
 
@@ -2138,9 +2138,8 @@ def fieldsplit_cavity(n: int, device, dtype):
     tables = a.device_tables_cached()
     R, data = a.make_assemble_fn(pass_tables=True)(u0, tables)
     A = a.op_with(data, tables["ell_cols"])
-    note = {"path": "ell"}
-    if a.n_dofs >= 2048:
-        plan, note = bell_device_plan(a.pattern, "identity", device)
+    plan, note = bell_device_plan(a.pattern, "identity", device)
+    if plan is not None:
         A = bell_backed(plan, A)
     return a, A, R, note
 
@@ -5395,18 +5394,16 @@ def phase_channel_vanka(seen: list) -> dict:
     return rows[-1]
 
 
-# the Vanka set-up's counters: blocks inverted, those V2 inverted, and the
-# plain chain's LU waits (none on the card)
-INVERT_SITES = ("vanka.blocks_inverted", "vanka.invert_kernel",
-                "host_wait.vanka_lu")
+# the Vanka set-up's counters: blocks inverted, and those V2 inverted
+INVERT_SITES = ("vanka.blocks_inverted", "vanka.invert_kernel")
 
 
 def inversions_on_v2(inverted: dict) -> bool:
-    """Every block a solve inverted went through V2, and no LU waited."""
+    """Every block a solve inverted went through V2 (none took the plain
+    chain's LU)."""
     return (inverted["vanka.blocks_inverted"] > 0
             and inverted["vanka.invert_kernel"]
-            == inverted["vanka.blocks_inverted"]
-            and inverted["host_wait.vanka_lu"] == 0)
+            == inverted["vanka.blocks_inverted"])
 
 
 def vanka_invert_work(dofs, data_dtype) -> tuple:

@@ -1,15 +1,11 @@
-"""The general sparse matvec of the BELL frame: blocked-ELL plans on the
-host, a sliced-ELL (SELL-C-sigma) operator on the device.
+"""The general sparse matvec of the BELL frame (kernel B1): a sliced-ELL
+(SELL-C-sigma) operator on the device, in a frame of the operator's dofs.
 
-Two layouts live here.
-
-- :class:`BellPlan` (host, identical to ``femus_tpu``'s ``BellPlan``) is the
-  blocked-ELL layout of the JAX package: rows cut into tiles of ``T`` rows,
-  columns into ``C``-column blocks packed into 128-lane slab rows.  The
-  port keeps it for what the solver reads from it: the frame (``perm`` /
-  ``iperm``, identity or reverse Cuthill-McKee) and the slab-density figure
-  that decides when an identity frame is rebuilt with RCM.  The port stores
-  no slab.
+- The frame (``perm`` / ``iperm``) is the identity or reverse Cuthill-McKee.
+  :func:`bell_device_plan` decides it, and whether an operator takes B1 at
+  all, in one place: an identity frame is rebuilt with RCM where the JAX
+  package's blocked-ELL slab would be too sparse (its rescue rule, whose
+  density :func:`slab_bytes_per_nnz` computes without building a slab).
 - :class:`SellPlan` is the layout the card streams: rows of the frame are
   cut into slices of ``SELL_C`` = 32 rows (one warp); inside a window of
   ``sigma`` rows they are sorted by length, so a slice pads only to its own
@@ -40,11 +36,6 @@ from .._cuda_build import load_library
 from .. import resolve_device
 from .sparse import EllPattern
 
-# slab rows per chunk: the plan pads the slab to whole chunks cut at tile
-# boundaries (the layout femus_tpu's fused kernel streams; kept so the
-# plans of both packages are identical arrays)
-_CHUNK = 256
-
 # the sliced-ELL layout of the card: rows per slice (one warp), slice
 # columns per lane and load (16 bytes of float32 or int32), and the window
 # of rows inside which rows are sorted by length.  sigma is fixed from the
@@ -67,212 +58,6 @@ def rcm_permutation(pattern: EllPattern) -> np.ndarray:
     s = ((a + a.T) > 0).astype(np.int8)
     return np.asarray(reverse_cuthill_mckee(s.tocsr(), symmetric_mode=True),
                       dtype=np.int64)
-
-
-@dataclasses.dataclass(frozen=True, eq=False)
-class BellPlan:
-    """Host-side BELL layout.  The fields up to ``tile_widths`` equal
-    ``femus_tpu.algebra.bell.BellPlan``'s; ``pattern`` is the operator
-    pattern the plan was built from (the sliced-ELL plan of the same frame
-    is built from it on first use, :meth:`sell`)."""
-
-    n: int                    # logical dof count (= pattern.n_rows)
-    tile: int                 # rows per block (T)
-    n_tiles: int
-    n_xblocks: int            # col-blocks (C-wide) covering permuted x
-    col_block: int            # C: columns per block (128 // pack)
-    perm: np.ndarray          # (n,) new -> old dof index
-    iperm: np.ndarray         # (n,) old -> new dof index
-    block_ids: np.ndarray     # (nb_pad,) col-block id per block (C units)
-    tile_start: np.ndarray    # (n_tiles + 1,) block range per row tile
-    dest: np.ndarray          # (n*width,) slab-flat index per ELL slot
-                              #            (out of bounds for padding slots)
-    diag_src: np.ndarray      # (n,) slab-flat index of each row's diagonal
-    nb: int                   # logical (nonempty) block count
-    win_start: np.ndarray     # (n_chunks,) x-window start per chunk (C units)
-    win: int                  # x-window width (C units, 128-padded)
-    tile_ids: np.ndarray      # (slab_rows,) row-tile id per slab row
-    twin_start: np.ndarray    # (n_chunks,) tile-window start per chunk
-    twin: int                 # tile-window width (8-padded)
-    chunk: int                # slab rows per chunk
-    tile_widths: tuple        # per-chunk tile-range widths
-    pattern: EllPattern       # the operator pattern (square)
-
-    @property
-    def identity(self) -> bool:
-        """True when no reordering was applied (skips permute gathers)."""
-        return bool(self.perm[0] == 0 and self.perm[-1] == self.n - 1
-                    and np.array_equal(self.perm, np.arange(self.n)))
-
-    @property
-    def pack(self) -> int:
-        return 128 // self.col_block
-
-    @property
-    def slab_rows(self) -> int:
-        """Physical (T, 128) slab rows."""
-        return int(self.block_ids.shape[0]) // self.pack
-
-    def slab_bytes(self, itemsize: int = 4) -> int:
-        return self.slab_rows * self.tile * 128 * itemsize
-
-    @property
-    def nnz_bytes_ratio(self) -> float:
-        """Slab bytes / ideal ELL bytes (value+index) — the traffic price."""
-        return self.slab_bytes() / (len(self.dest) * 8)
-
-    def sell(self, sigma: int = SELL_SIGMA) -> "SellPlan":
-        """The sliced-ELL plan of this pattern in this plan's frame
-        (cached per sigma)."""
-        cache = self.__dict__.setdefault("_sell", {})
-        if sigma not in cache:
-            cache[sigma] = build_sell_plan(self.pattern, self.perm, sigma)
-        return cache[sigma]
-
-    def to_device(self, device) -> "SellDev":
-        """Device view of the sliced-ELL plan (cached per device)."""
-        return self.sell().to_device(device)
-
-
-def build_bell_plan(pattern: EllPattern, tile: int = 16,
-                    perm=None, col_block: int = 32) -> BellPlan:
-    """Blocked-ELL layout of ``pattern``.
-
-    ``perm``: None -> RCM ordering; "identity" -> no permutation (block
-    density relies on the dof numbering being local, e.g. a mesh passed
-    through ``mesh.reorder.rcm_reorder`` with interleaved dofs); or an
-    explicit (n,) ordering array.  ``col_block`` C: columns per block;
-    ``tile`` T: rows per block.
-
-    Layout invariants: blocks sorted (row-tile, col-block); each tile's
-    block run padded to a multiple of ``pack`` (single-tile slab rows);
-    slab rows cut into ``chunk``-row pieces at tile boundaries."""
-    n = pattern.n_rows
-    assert pattern.n_cols == n, "BELL expects a square operator"
-    assert 128 % col_block == 0
-    if isinstance(perm, str) and perm == "identity":
-        perm = np.arange(n, dtype=np.int64)
-    elif perm is None:
-        perm = rcm_permutation(pattern)
-    iperm = np.empty_like(perm)
-    iperm[perm] = np.arange(n)
-
-    counts = np.diff(pattern.indptr)
-    rows = np.repeat(np.arange(n, dtype=np.int64), counts)
-    rp = iperm[rows]
-    cp = iperm[pattern.indices]
-
-    C = col_block
-    pack = 128 // C
-    T = tile
-    n_tiles = -(-n // T)
-    n_xblocks = -(-n // C)
-    chunk = _CHUNK
-
-    key = (rp // T) * np.int64(n_xblocks) + cp // C
-    uniq, inv = np.unique(key, return_inverse=True)
-    nb = len(uniq)
-    tid0 = (uniq // n_xblocks).astype(np.int64)
-    bid0 = (uniq % n_xblocks).astype(np.int32)
-    # pad each tile's block run to a pack multiple -> single-tile slab rows
-    tiles_u, tstartb = np.unique(tid0, return_index=True)
-    cnt = np.diff(np.append(tstartb, nb))
-    rows_pt = -(-cnt // pack)                      # slab rows per tile
-    row_off = np.concatenate([[0], np.cumsum(rows_pt)]).astype(np.int64)
-    rank = np.arange(nb, dtype=np.int64) - np.repeat(tstartb, cnt)
-    pb1 = np.repeat(row_off[:-1] * pack, cnt) + rank
-    nrows1 = int(row_off[-1])
-    rowtile = np.repeat(tiles_u, rows_pt)          # (nrows1,) tile per row
-    # chunk cuts in row units at tile boundaries
-    cuts = [0]
-    while cuts[-1] < nrows1:
-        limit = cuts[-1] + chunk
-        if limit >= nrows1:
-            cuts.append(nrows1)
-            break
-        j = np.searchsorted(row_off, limit, side="right") - 1
-        cut = int(row_off[j])
-        if cut <= cuts[-1]:            # one tile wider than a whole chunk
-            cut = limit
-        cuts.append(cut)
-    cuts = np.asarray(cuts, np.int64)
-    n_chunks = max(len(cuts) - 1, 1)
-    sr = n_chunks * chunk
-    # physical row of each padded row index
-    chunk_of_r = np.searchsorted(cuts, np.arange(nrows1), side="right") - 1
-    shift = np.arange(n_chunks, dtype=np.int64) * chunk - cuts[:-1]
-    pr_of = np.arange(nrows1, dtype=np.int64) + shift[chunk_of_r]
-    pb = pr_of[pb1 // pack] * pack + pb1 % pack    # final block position
-    # relayout destinations per ELL slot
-    prb = pb[inv]
-    dest_nnz = ((prb // pack) * T + rp % T) * 128 + (prb % pack) * C + cp % C
-    dest = sr * T * 128 + np.arange(n * pattern.width, dtype=np.int64)
-    dest[pattern.csr_to_ell_slots()] = dest_nnz
-    dest_csr = dest_nnz
-    # per-chunk x windows + tile ranges (tb)
-    win_start = np.zeros(n_chunks, np.int32)
-    win = 1
-    tb = np.zeros(n_chunks + 1, np.int64)
-    tb[n_chunks] = n_tiles
-    seam = False
-    tid_by_row = np.zeros(sr, np.int32)
-    bid_per_block = np.zeros(sr * pack, np.int32)
-    bid_per_block[pb] = bid0
-    for c in range(n_chunks):
-        lo, hi = int(cuts[c]), int(cuts[c + 1])
-        if hi > lo:
-            blk_lo = np.searchsorted(pb1 // pack, lo, side="left")
-            blk_hi = np.searchsorted(pb1 // pack, hi, side="left")
-            ids = bid0[blk_lo:blk_hi]
-            if len(ids):
-                win_start[c] = ids.min()
-                win = max(win, int(ids.max()) - int(ids.min()) + 1)
-            tb[c] = 0 if c == 0 else rowtile[lo]
-            if c > 0 and rowtile[lo - 1] >= rowtile[lo]:
-                seam = True
-        else:
-            tb[c] = 0 if c == 0 else tb[c - 1]
-    win = -(-win // 128) * 128
-    win_start = np.minimum(win_start, max(n_xblocks, win) - win)
-    widths = np.diff(tb)
-    twin = -(-max(int(widths.max()) if len(widths) else 1, 1) // 8) * 8
-    if seam:
-        twin = 1 << 30
-    twin_start = tb[:-1].astype(np.int32)
-    tile_widths = tuple(int(w) for w in widths)
-    # padding blocks/rows index their chunk's window starts (zero values)
-    pad_mask = np.ones(sr * pack, bool)
-    pad_mask[pb] = False
-    pad_idx = np.flatnonzero(pad_mask)
-    bid_per_block[pad_idx] = win_start[pad_idx // (chunk * pack)]
-    row_pad = np.ones(sr, bool)
-    row_pad[pr_of] = False
-    tid_by_row[pr_of] = rowtile.astype(np.int32)
-    rpad_idx = np.flatnonzero(row_pad)
-    tid_by_row[rpad_idx] = twin_start[rpad_idx // chunk]
-    size = sr * T * 128
-    # diagonal slab positions per (new-order) row; rows without a diagonal
-    # pattern entry read a guaranteed-zero hole
-    diag_rows_new = rp[cp == rp]
-    diag = np.empty(n, np.int64)
-    diag[diag_rows_new] = dest_csr[cp == rp]
-    if len(diag_rows_new) < n:
-        used = np.zeros(size, bool)
-        used[dest_csr] = True
-        hole = int(np.argmin(used))
-        if used[hole]:
-            raise RuntimeError("BELL slab fully dense — no zero slot for "
-                               "diagonal-less rows (pad blocks exhausted)")
-        missing = np.ones(n, bool)
-        missing[diag_rows_new] = False
-        diag[missing] = hole
-    diag = diag[iperm]               # new-row order -> original row order
-    tile_start = np.concatenate([[0], np.cumsum(
-        np.bincount(tid0, minlength=n_tiles))]).astype(np.int64)
-    return BellPlan(n, T, n_tiles, n_xblocks, C, perm, iperm,
-                    bid_per_block, tile_start, dest, diag, nb, win_start,
-                    win, tid_by_row, twin_start, twin, chunk, tile_widths,
-                    pattern)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -337,7 +122,7 @@ class SellPlan:
 def build_sell_plan(pattern: EllPattern, perm=None,
                     sigma: int = SELL_SIGMA) -> SellPlan:
     """Sliced-ELL layout of ``pattern`` in the frame ``perm`` (None -> RCM,
-    "identity", or an explicit (n,) ordering, as :func:`build_bell_plan`).
+    "identity", or an explicit (n,) ordering: new index i <-> old perm[i]).
     Rows are sorted by length (longest first, ties in frame order) inside
     windows of ``sigma`` frame rows, a multiple of the slice height."""
     n = pattern.n_rows
@@ -567,8 +352,8 @@ def relayout_ell(plan, ell_data: torch.Tensor, dtype=None,
                  device="cuda") -> BellOp:
     """Lay assembled ELL data out as sliced-ELL values on ``device``: one
     gather through the plan's source index (padding slots read the zero
-    appended to the data).  ``plan``: a host :class:`BellPlan` or
-    :class:`SellPlan`, or a :class:`SellDev`.  ``dtype``: value storage
+    appended to the data).  ``plan``: a host :class:`SellPlan` or a
+    :class:`SellDev`.  ``dtype``: value storage
     type (float32, float64 or bfloat16); x and the accumulation stay in
     the solve precision."""
     device = resolve_device(device)
@@ -623,8 +408,8 @@ class BellBackedOp:
 
 def bell_backed(plan, op) -> BellBackedOp:
     """Wrap an assembled ELL operator with the frame matvec (values on the
-    operator's device).  ``plan``: a host :class:`BellPlan` or
-    :class:`SellPlan`, or a :class:`SellDev`."""
+    operator's device).  ``plan``: a host :class:`SellPlan` or a
+    :class:`SellDev`."""
     return BellBackedOp(op.data, op.cols, op.n_cols,
                         relayout_ell(plan, op.data, device=op.data.device))
 
@@ -633,37 +418,71 @@ def bell_backed(plan, op) -> BellBackedOp:
 # the BELL frame (kernel B1); below, the ELL gather is already cheap
 BELL_MIN_ROWS = 2048
 
+# the JAX package's blocked-ELL slab, whose density its RCM rescue reads:
+# row tiles of 16, column blocks of 32 packed 4 to a 128-lane slab row,
+# slab rows padded to chunks of 256 cut at tile boundaries.  They reproduce
+# that rule's figure here and feed no layout of the port
+_SLAB_TILE, _SLAB_COLS, _SLAB_PACK, _SLAB_CUT = 16, 32, 4, 256
+
+
+def slab_bytes_per_nnz(pattern: EllPattern, perm: np.ndarray) -> float:
+    """Bytes of the JAX package's blocked-ELL slab of ``pattern`` in the
+    frame ``perm`` over the value and index bytes of its ELL slots (that
+    package's ``nnz_bytes_ratio``, equal to the last bit), counted without
+    building the slab: the nonempty (row tile, column block) pairs, a
+    tile's blocks in whole slab rows, slab rows in whole chunks."""
+    n = pattern.n_rows
+    iperm = np.empty_like(perm)
+    iperm[perm] = np.arange(n)
+    rows = np.repeat(np.arange(n, dtype=np.int64), np.diff(pattern.indptr))
+    n_xblocks = -(-n // _SLAB_COLS)
+    blocks = np.unique((iperm[rows] // _SLAB_TILE) * np.int64(n_xblocks)
+                       + iperm[pattern.indices] // _SLAB_COLS)
+    _, per_tile = np.unique(blocks // n_xblocks, return_counts=True)
+    row_off = np.concatenate([[0], np.cumsum(-(-per_tile // _SLAB_PACK))])
+    n_chunks, cut, end = 0, 0, int(row_off[-1])
+    while cut < end:
+        limit = cut + _SLAB_CUT
+        nxt = end if limit >= end else int(
+            row_off[np.searchsorted(row_off, limit, side="right") - 1])
+        cut = nxt if nxt > cut else limit   # one tile wider than a chunk
+        n_chunks += 1
+    slab = max(n_chunks, 1) * _SLAB_CUT * _SLAB_TILE * 128 * 4
+    return slab / (int(n) * int(pattern.width) * 8)
+
 
 def bell_device_plan(pattern, order: str = "identity", device="cuda"):
-    """(device plan, routing note) of an operator pattern: the sliced-ELL
-    layout in the BELL frame, identity (``order="identity"``, rebuilt with
-    RCM when the identity slab would exceed 24 B per nonzero) or RCM."""
-    plan = build_bell_plan(pattern,
-                           perm="identity" if order == "identity" else None)
+    """(device plan, routing note) of an operator pattern: None below
+    BELL_MIN_ROWS rows, else the sliced-ELL layout in the BELL frame,
+    identity (``order="identity"``, rebuilt with RCM when the identity slab
+    would exceed 24 B per nonzero) or RCM."""
+    n = pattern.n_rows
+    if n < BELL_MIN_ROWS:
+        return None, {"n_rows": n, "path": "ell",
+                      "reason": f"below bell threshold ({BELL_MIN_ROWS} rows)"}
     note = {"order": order}
-    if order == "identity" and plan.nnz_bytes_ratio > 24.0:
-        ratio = plan.nnz_bytes_ratio
-        plan = build_bell_plan(pattern)        # RCM rescue
-        note = {"order": "rcm-rescue",
-                "reason": f"identity slab {ratio:.1f} B/nnz > 24.0, "
-                          f"rebuilt with RCM ({plan.nnz_bytes_ratio:.1f})"}
-    sell = plan.sell()
-    note = {"path": "bell", "kernel": "bell_spmv", "sigma": sell.sigma,
-            "fill": round(sell.fill, 4), **note}
+    if order == "identity":
+        perm = np.arange(n, dtype=np.int64)
+        ratio = slab_bytes_per_nnz(pattern, perm)
+        if ratio > 24.0:
+            perm = rcm_permutation(pattern)        # RCM rescue
+            note = {"order": "rcm-rescue",
+                    "reason": f"identity slab {ratio:.1f} B/nnz > 24.0, "
+                              "rebuilt with RCM "
+                              f"({slab_bytes_per_nnz(pattern, perm):.1f})"}
+    else:
+        perm = rcm_permutation(pattern)
+    sell = build_sell_plan(pattern, perm)
+    note = {"n_rows": n, "path": "bell", "kernel": "bell_spmv",
+            "sigma": sell.sigma, "fill": round(sell.fill, 4), **note}
     return sell.to_device(resolve_device(device)), note
 
 
 def on_bell_frame(op, pattern, device, routing: Optional[list] = None):
     """``op`` with its matvec on the sliced-ELL operator of the BELL frame
-    (kernel B1) from BELL_MIN_ROWS rows, else ``op`` itself; the decision
-    is appended to ``routing``."""
-    if pattern.n_rows < BELL_MIN_ROWS:
-        note = {"n_rows": pattern.n_rows, "path": "ell",
-                "reason": f"below bell threshold ({BELL_MIN_ROWS} rows)"}
-    else:
-        dev, note = bell_device_plan(pattern, "identity", device)
-        note = {"n_rows": pattern.n_rows, **note}
-        op = bell_backed(dev, op)
+    (kernel B1) where :func:`bell_device_plan` gives a plan, else ``op``
+    itself; the decision is appended to ``routing``."""
+    dev, note = bell_device_plan(pattern, "identity", device)
     if routing is not None:
         routing.append(note)
-    return op
+    return op if dev is None else bell_backed(dev, op)

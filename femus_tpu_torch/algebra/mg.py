@@ -260,7 +260,7 @@ def build_hierarchy(fine_op: SparseOp,
     transfers[i] connects level i (coarse) to level i+1 (fine).  dir_masks
     (coarse->fine, excluding the finest, whose operator arrives eliminated)
     restores identity rows on the Galerkin-coarsened operators.  bell_plans
-    (coarse->fine, one per level, SellDev/BellPlan or None) re-lays each
+    (coarse->fine, one per level, SellPlan/SellDev or None) re-lays each
     level's matvec onto the sliced-ELL operator; PtAP and smoother block
     extraction keep reading the ELL side.  smoother: "chebyshev" |
     "jacobi" | "vanka" | "vanka_gmres" (the block sweep inside ``krylov_m``

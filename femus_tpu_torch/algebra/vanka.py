@@ -25,7 +25,7 @@ import torch
 
 from .. import resolve_device
 from .._cuda_build import load_library
-from ..utils.telemetry import count, lu_factor_waits, span
+from ..utils.telemetry import count, span
 from .bell import _DTYPE_CODE
 from .sparse import EllPattern
 
@@ -185,7 +185,6 @@ def invert_plain(data: torch.Tensor, dofs: torch.Tensor,
     Ab = gather_blocks(data, dofs, slots, n)
     eye = torch.eye(dofs.shape[1], dtype=data.dtype, device=data.device)
     lu, piv = torch.linalg.lu_factor(Ab)
-    count("host_wait.vanka_lu", lu_factor_waits(*Ab.shape[:2]))
     Ainv = torch.linalg.lu_solve(lu, piv, eye.expand(Ab.shape))
     return Ainv, (dofs < n).to(data.dtype)
 

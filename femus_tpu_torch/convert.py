@@ -42,7 +42,7 @@ def bell_op_from_numpy(plan_arrays: Mapping, slab: np.ndarray, pattern,
 
     ``plan_arrays`` holds ``perm`` (None or the (n,) ordering) and ``dest``
     (the slab-flat index of every ELL slot, out of bounds for padding
-    slots) — fields of either package's ``BellPlan``; ``pattern`` has the
+    slots) — fields of the JAX package's ``BellPlan``; ``pattern`` has the
     fields of either package's ``EllPattern``.  The slab's values are read
     back into ELL order through ``dest`` and laid out in the sliced-ELL
     plan of the same frame."""

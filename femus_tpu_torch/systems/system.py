@@ -18,8 +18,7 @@ import scipy.sparse as sp
 import torch
 
 from .. import default_dtype, resolve_device
-from ..algebra.bell import (BELL_MIN_ROWS, bell_backed, bell_device_plan,
-                             spmv_bell_cuda)
+from ..algebra.bell import bell_backed, bell_device_plan, spmv_bell_cuda
 from ..algebra.dia import spmv_dia_cuda
 from ..algebra.krylov import cg, fgmres, gmres
 from ..algebra.mg import (build_hierarchy, build_hierarchy_from_ops,
@@ -99,8 +98,8 @@ class SolverConfig:
     # first coarse level is always re-assembled, the deeper ones Galerkin)
     coarse_op: str = "galerkin"
     # dof ordering of the BELL frame: "identity" trusts the mesh numbering
-    # (a plan whose blocked-ELL slab would exceed 24x the ELL bytes is
-    # rebuilt with RCM), "rcm" reorders at plan build
+    # (rebuilt with RCM where the JAX package's blocked-ELL slab would
+    # exceed 24x the ELL bytes), "rcm" reorders at plan build
     bell_order: str = "identity"
     # cap on the cycle's depth: K = only the top K mesh levels form the
     # preconditioner hierarchy (0 = all); a truncated coarsest level above
@@ -352,21 +351,15 @@ class System:
 
     def _bell_dev(self, pattern):
         """Cached device plan (sliced ELL in the BELL frame) for an
-        operator pattern; None below BELL_MIN_ROWS rows.  The frame is the
-        blocked-ELL plan's: identity, or RCM when asked for or when the
-        identity slab is too sparse."""
-        if pattern.n_rows < BELL_MIN_ROWS:
-            self._route_note(n_rows=pattern.n_rows, path="ell",
-                             reason=f"below bell threshold ({BELL_MIN_ROWS}"
-                                    " rows)")
-            return None
+        operator pattern, as :func:`bell_device_plan` decides it: None
+        below its row threshold."""
         # EllPattern has identity equality: the pattern object is the key
         if pattern not in self._bell_plans:
             with span("setup.step_build"):
                 count("rebuild.bell_plan")
                 dev, note = bell_device_plan(pattern, self.config.bell_order,
                                              self.device)
-            self._route_note(n_rows=pattern.n_rows, **note)
+            self._route_note(**note)
             self._bell_plans[pattern] = dev
         return self._bell_plans[pattern]
 

@@ -269,25 +269,6 @@ def count(site: str, n: int = 1) -> None:
     RECORDER.count(site, n)
 
 
-def lu_factor_waits(batch: int, n: int) -> int:
-    """Host waits of one ``torch.linalg.lu_factor`` of ``batch`` n x n
-    matrices on the card: its error check's read, and, where torch routes
-    the batch to MAGMA (batch > 1 and n > 128, or batch > 16 and n > 16),
-    one device and one (n <= 32) or two stream synchronisations inside
-    (torch 2.11, CUDA 12.8 on an H100: cuSOLVER's and cuBLAS's routes
-    wait for nothing, and so does every batch once
-    ``torch.backends.cuda.preferred_linalg_library`` names cuSOLVER).
-    Only the plain Vanka inversion (``algebra.vanka.invert_plain``) counts
-    it, as ``host_wait.vanka_lu``: host operators take that chain, while
-    the card's Vanka set-up runs kernel V2 and calls no LU."""
-    if (torch.backends.cuda.preferred_linalg_library()
-            == torch._C._LinalgBackend.Cusolver):
-        return 1
-    if batch > 1 and (n > 128 or (batch > 16 and n > 16)):
-        return 3 if n <= 32 else 4
-    return 1
-
-
 def records_solve(solve):
     """Method decorator: each call of ``solve`` is one solve record of
     ``self.name``."""

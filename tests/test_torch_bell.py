@@ -1,13 +1,16 @@
-"""Port parity: blocked-ELL plans, the sliced-ELL layout of the card and
-its plain matvec against femus_tpu.
+"""Port parity: the BELL frame, the sliced-ELL layout of the card and its
+plain matvec against femus_tpu.
 
-The blocked-ELL plan code is copied, so every plan array must be EQUAL.
-The port's own layout (sliced ELL, ``SellPlan``) has no JAX counterpart:
-its invariants are checked here, and its plain matvec against the JAX
-package's ``BellOp.matvec`` and ``_matvec_xla_frame`` in float64 — the same
-products in another order: rtol 1e-12.  The CUDA kernel itself is held
-against the plain version on the card (tests/test_torch_kernels.py); here a
-numpy emulation of its walk (one warp per slice, lane = row, groups of four
+The frame must EQUAL the JAX package's blocked-ELL plan's (``perm`` and
+``iperm``), and the port's slab density, computed without a slab, the JAX
+plan's ``nnz_bytes_ratio`` to the last bit: it decides the RCM rescue,
+whose frame and note must be the JAX System's.  The port's own layout
+(sliced ELL, ``SellPlan``) has no JAX counterpart: its invariants are
+checked here, and its plain matvec against the JAX package's
+``BellOp.matvec`` and ``_matvec_xla_frame`` in float64 — the same products
+in another order: rtol 1e-12.  The CUDA kernel itself is held against the
+plain version on the card (tests/test_torch_kernels.py); here a numpy
+emulation of its walk (one warp per slice, lane = row, groups of four
 columns) checks the arrays it reads.
 """
 import jax.numpy as jnp
@@ -21,10 +24,6 @@ from femus_tpu.algebra.sparse import SparseOp as JSparseOp
 from femus_tpu.algebra.sparse import pattern_from_pairs as jpairs
 from femus_tpu_torch import convert
 from femus_tpu_torch.algebra.sparse import EllPattern
-
-PLAN_ARRAYS = ("block_ids", "tile_ids", "dest", "diag_src", "tile_start",
-               "win_start", "twin_start", "perm", "iperm")
-
 
 def _tpat(p):
     """The same pattern as a port EllPattern."""
@@ -63,23 +62,38 @@ def _pattern(kind, ns):
 
 @pytest.mark.parametrize("kind,ns", CASES)
 @pytest.mark.parametrize("order", ["identity", None])
-@pytest.mark.parametrize("tile", [8, 16])
-def test_plan_arrays_equal(kind, ns, order, tile):
+@pytest.mark.parametrize("sigma", [32, 512])
+def test_frame_equals_jax_plan(kind, ns, order, sigma):
+    """The sliced-ELL plan lives in the JAX blocked-ELL plan's frame, and
+    the slab density of that frame equals the JAX plan's exactly."""
     pat = _pattern(kind, ns)
-    jp = jbell.build_bell_plan(pat, tile=tile, perm=order)
-    tp = tbell.build_bell_plan(_tpat(pat), tile=tile, perm=order)
-    for f in PLAN_ARRAYS:
-        np.testing.assert_array_equal(getattr(jp, f), getattr(tp, f),
-                                      err_msg=f)
-    for f in ("n", "tile", "n_tiles", "n_xblocks", "col_block", "nb", "win",
-              "twin", "chunk", "tile_widths"):
-        assert getattr(jp, f) == getattr(tp, f), f
-    assert jp.slab_rows == tp.slab_rows
-    assert jp.nnz_bytes_ratio == tp.nnz_bytes_ratio
-    # the card's layout lives in the same frame
-    sp = tp.sell()
+    jp = jbell.build_bell_plan(pat, tile=16, perm=order)
+    sp = tbell.build_sell_plan(_tpat(pat), order, sigma)
     np.testing.assert_array_equal(sp.perm, jp.perm)
     np.testing.assert_array_equal(sp.iperm, jp.iperm)
+    assert tbell.slab_bytes_per_nnz(_tpat(pat), sp.perm) == jp.nnz_bytes_ratio
+
+
+def _wide_pattern(n=40000, seed=0):
+    """A band, random entries, and a first row tile of 32,000 entries: a
+    slab of some 130-150 chunks, one tile wider than a chunk."""
+    rng = np.random.default_rng(seed)
+    r = [np.arange(n), np.repeat(np.arange(16), 2000), np.arange(n),
+         rng.integers(0, n, 3 * n)]
+    c = [np.arange(n), rng.integers(0, n, 32000),
+         np.minimum(np.arange(n) + 40, n - 1), rng.integers(0, n, 3 * n)]
+    return jpairs(np.concatenate(r), np.concatenate(c), n, n)
+
+
+@pytest.mark.parametrize("order", ["identity", None])
+def test_slab_density_over_many_chunks(order):
+    """The chunk cuts of a slab of many chunks, a tile wider than a chunk
+    cut inside it: the density equals the JAX plan's exactly."""
+    pat = _wide_pattern()
+    jp = jbell.build_bell_plan(pat, perm=order)
+    assert jp.slab_rows > 100 * jp.chunk
+    assert tbell.slab_bytes_per_nnz(_tpat(pat), np.asarray(jp.perm)) \
+        == jp.nnz_bytes_ratio
 
 
 @pytest.mark.parametrize("kind,ns", CASES)
@@ -199,8 +213,8 @@ def test_plain_matvec_matches_jax(kind, ns, order, sigma):
     x = np.random.default_rng(2).standard_normal(pat.n_rows)
     jp = jbell.build_bell_plan(pat, perm=order)
     jop = jbell.relayout_ell(jp, jnp.asarray(data))
-    tp = tbell.build_bell_plan(_tpat(pat), perm=order)
-    plan = tp if sigma is None else tp.sell(sigma)
+    plan = tbell.build_sell_plan(_tpat(pat), order,
+                                 **({} if sigma is None else {"sigma": sigma}))
     top = tbell.relayout_ell(plan, torch.as_tensor(data), device="cpu")
     assert top.dev.sigma == (tbell.SELL_SIGMA if sigma is None else sigma)
     assert top.vals.shape == (top.dev.total + 1,) and top.vals[-1] == 0
@@ -221,6 +235,36 @@ def test_plain_matvec_matches_jax(kind, ns, order, sigma):
     A = JSparseOp(jnp.asarray(data), jnp.asarray(pat.cols), pat.n_cols)
     np.testing.assert_allclose(y, np.asarray(A @ jnp.asarray(x)),
                                rtol=1e-11, atol=1e-11)
+
+
+@pytest.mark.parametrize("kind,ns", SELL_CASES)
+def test_rcm_rescue_matches_jax(monkeypatch, kind, ns):
+    """bell_order="identity": the frame and the routing note of the JAX
+    System's rule (an identity slab above 24 B a nonzero is rebuilt with
+    RCM, both densities in the note).  At these sizes one 256-row chunk
+    of slab outweighs the nonzeros: the random and the Poisson patterns
+    (36-64 B a nonzero) take the rescue, the 8 x 8 NS pattern (5.5) keeps
+    the identity."""
+    pat = _sell_pattern(kind, ns)
+    monkeypatch.setattr(tbell, "BELL_MIN_ROWS", 1)
+    dev, note = tbell.bell_device_plan(_tpat(pat), "identity", "cpu")
+    jp = jbell.build_bell_plan(pat, perm="identity")
+    ratio = jp.nnz_bytes_ratio
+    rescued = ratio > 24.0
+    assert rescued == (kind != "ns")
+    if rescued:
+        jp = jbell.build_bell_plan(pat)
+        assert note["order"] == "rcm-rescue"
+        assert note["reason"] == (
+            f"identity slab {ratio:.1f} B/nnz > 24.0, rebuilt with RCM "
+            f"({jp.nnz_bytes_ratio:.1f})")
+        np.testing.assert_array_equal(dev.perm.numpy(), jp.perm)
+        np.testing.assert_array_equal(dev.iperm.numpy(), jp.iperm)
+    else:
+        assert note["order"] == "identity" and "reason" not in note
+        assert dev.perm is None and dev.iperm is None
+    assert note["path"] == "bell" and note["n_rows"] == pat.n_rows
+    assert dev.n == pat.n_rows and dev.sigma == tbell.SELL_SIGMA
 
 
 def _kernel_walk(op, xf):
@@ -248,7 +292,7 @@ def _kernel_walk(op, xf):
                                      ("holed", None)])
 def test_kernel_walk_matches_plain(kind, ns):
     pat = _sell_pattern(kind, ns)
-    plan = tbell.build_bell_plan(_tpat(pat), perm="identity")
+    plan = tbell.build_sell_plan(_tpat(pat), "identity")
     op = tbell.relayout_ell(plan, torch.as_tensor(_fem_data(pat)),
                             device="cpu")
     x = np.random.default_rng(3).standard_normal(plan.n)
@@ -289,11 +333,10 @@ def test_relayout_dtypes_and_backed_op():
     from femus_tpu_torch.algebra.sparse import SparseOp
     pat = _mesh_pattern("ns", (8, 8))
     data = torch.as_tensor(_fem_data(pat))
-    plan = tbell.build_bell_plan(_tpat(pat), perm="identity")
-    sp = plan.sell()
+    plan = tbell.build_sell_plan(_tpat(pat), "identity")
     ref = tbell.relayout_ell(plan, data, device="cpu").vals
     flat = torch.cat([data.reshape(-1), data.new_zeros(1)])
-    assert torch.equal(ref, flat[torch.as_tensor(sp.src)])
+    assert torch.equal(ref, flat[torch.as_tensor(plan.src)])
     # invalid ELL slots may hold anything: they are never a source
     noisy = torch.where(torch.as_tensor(pat.valid), data, 99.0)
     assert torch.equal(tbell.relayout_ell(plan, noisy, device="cpu").vals,
@@ -328,7 +371,7 @@ def test_cuda_tensor_without_card_raises():
         pytest.skip("a card is present")
     pat = _random_pattern()
     with pytest.raises(RuntimeError, match="CUDA is not available"):
-        tbell.relayout_ell(tbell.build_bell_plan(_tpat(pat)),
+        tbell.relayout_ell(tbell.build_sell_plan(_tpat(pat)),
                            torch.as_tensor(_fem_data(pat)))
 
 

@@ -13,8 +13,6 @@ float64 on the host; and the Vanka set-up's span and counter.
 - ``smoothers.vanka_invert`` opens inside ``mg_setup.smoothers`` and
   ``vanka.blocks_inverted`` adds the blocks each smoother set-up inverts,
   on the multiplicative and the additive path.
-- ``telemetry.lu_factor_waits`` counts MAGMA's waits only where torch's
-  preferred linear-algebra library leaves the batch to MAGMA.
 """
 import numpy as np
 import pytest
@@ -172,16 +170,3 @@ def test_both_vanka_paths_record_the_inversions(multiplicative):
     assert delta("spans", "smoothers.vanka_invert", 1) == 1
     assert delta("counts", "vanka.blocks_inverted") == sum(
         d.shape[0] for d in blocks.color_dofs) == 8
-
-
-@pytest.mark.parametrize("library,waits", [
-    ("Default", (1, 4, 3, 4)), ("Cusolver", (1, 1, 1, 1))])
-def test_lu_factor_waits_follow_the_preferred_library(monkeypatch, library,
-                                                      waits):
-    """The cell's configuration puts torch's LU on cuSOLVER; the counted
-    waits of a batched LU are MAGMA's only under the default library."""
-    chosen = getattr(torch._C._LinalgBackend, library)
-    monkeypatch.setattr(torch.backends.cuda, "preferred_linalg_library",
-                        lambda *a: chosen)
-    shapes = ((1, 60), (20, 60), (20, 30), (2, 200))
-    assert tuple(telemetry.lu_factor_waits(b, n) for b, n in shapes) == waits

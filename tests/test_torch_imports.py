@@ -113,7 +113,7 @@ def no_cuda(monkeypatch):
 
 
 def test_entry_points_raise_without_cuda(no_cuda):
-    from femus_tpu_torch.algebra.bell import build_bell_plan, relayout_ell
+    from femus_tpu_torch.algebra.bell import build_sell_plan, relayout_ell
     from femus_tpu_torch.algebra.condest import sigma_max, sigma_min
     from femus_tpu_torch.algebra.mg import build_hierarchy
     from femus_tpu_torch.assembly.engine import Assembler, Unknown
@@ -128,7 +128,7 @@ def test_entry_points_raise_without_cuda(no_cuda):
         Assembler(mesh, [Unknown("u")])
     a = Assembler(mesh, [Unknown("u")], device="cpu")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
-        relayout_ell(build_bell_plan(a.pattern),
+        relayout_ell(build_sell_plan(a.pattern),
                      torch.zeros(a.pattern.cols.shape, dtype=torch.float64))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         build_hierarchy(None, [])
@@ -191,7 +191,7 @@ def test_cuda_matvec_never_falls_back_to_the_host(monkeypatch):
     from femus_tpu_torch.mesh.patches import refine_patched
 
     pat = pattern_from_pairs(np.arange(64), np.arange(64), 64, 64)
-    op = bell.relayout_ell(bell.build_bell_plan(pat),
+    op = bell.relayout_ell(bell.build_sell_plan(pat),
                            torch.ones(64, 1, dtype=torch.float64),
                            device="cpu")
     with pytest.raises((ValueError, RuntimeError, AssertionError)):

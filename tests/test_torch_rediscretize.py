@@ -198,14 +198,14 @@ def test_from_ops_bf16_builds_on_float32():
 
 def test_from_ops_bell_levels_cast_both_layouts():
     """A level on the BELL frame casts its ELL and its sliced-ELL values."""
-    from femus_tpu_torch.algebra.bell import BellBackedOp, bell_backed
-    from femus_tpu_torch.algebra.bell import bell_device_plan
+    from femus_tpu_torch.algebra.bell import (BellBackedOp, bell_backed,
+                                              build_sell_plan)
     a = teng.Assembler(tunit_box((8, 8)), [teng.Unknown("u")], device="cpu")
     a.set_volume_form(tforms.poisson("u"))
     tbc.generate_bdc(a, lambda var, x, grp, t: (True, 0.0))
     _, data = a.make_assemble_fn()(torch.zeros(a.n_dofs, dtype=torch.float64))
-    A = bell_backed(bell_device_plan(a.pattern, device="cpu")[0],
-                    a.op_with(data))
+    # an RCM frame, as the rescue gives this 289-row pattern
+    A = bell_backed(build_sell_plan(a.pattern), a.op_with(data))
     A16 = tmg._cast_level(A, torch.bfloat16)
     assert isinstance(A16, BellBackedOp)
     assert A16.data.dtype == A16.bell.vals.dtype == torch.bfloat16

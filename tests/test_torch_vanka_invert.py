@@ -214,15 +214,19 @@ def test_plain_inverse_matches_numpy(case, dtype, tol):
         assert (dense[:3, 0, 0] == 0).all() and (dofs == n).any()
 
 
-def test_host_path_counts_lu_waits_and_no_kernel():
+def test_host_path_counts_no_wait_and_no_kernel():
+    """The plain chain counts the blocks it inverts, and no host wait and
+    no V2 inversion."""
     A, blocks = vk._ns_case("cpu")
     sites = telemetry.RECORDER.sites
-    kern, lu = (sites.get("vanka.invert_kernel", 0),
-                sites.get("host_wait.vanka_lu", 0))
+    before = dict(sites)
     vanka.vanka_smoother(A, blocks)
-    assert sites.get("vanka.invert_kernel", 0) == kern
-    assert sites.get("host_wait.vanka_lu", 0) == lu + sum(
-        telemetry.lu_factor_waits(*d.shape) for d in blocks.color_dofs)
+    added = {k: v - before.get(k, 0) for k, v in sites.items()
+             if v != before.get(k, 0)}
+    assert not [k for k in added if k.startswith("host_wait.")]
+    assert "vanka.invert_kernel" not in added
+    assert added["vanka.blocks_inverted"] == sum(
+        d.shape[0] for d in blocks.color_dofs) > 0
 
 
 def test_kernel_wrapper_refuses_host_values():
@@ -340,13 +344,11 @@ def test_smoother_setup_waits_for_nothing(cuda):
     A, blocks = vk._ns_case(cuda, torch.float32)
     vanka.vanka_smoother(A, blocks)          # the libraries load first
     torch.cuda.synchronize()
-    lu = telemetry.RECORDER.sites.get("host_wait.vanka_lu", 0)
     torch.cuda.set_sync_debug_mode("error")
     try:
         vanka.vanka_smoother(A, blocks, omega=0.9, iters=2)
     finally:
         torch.cuda.set_sync_debug_mode(0)
-    assert telemetry.RECORDER.sites.get("host_wait.vanka_lu", 0) == lu
 
 
 @pytest.mark.cuda
